@@ -1,0 +1,145 @@
+"""Convex selection objective of Beliakov (2011), Eqs. (1)-(2) — counting leg.
+
+The k-th smallest element of ``x`` (1-indexed) is the minimizer of the
+piecewise-linear convex function
+
+    f(y) = (1/n) * sum_i u(x_i - y),
+    u(t) = beta * t        if t >= 0          (x_i above y)
+         = -alpha * t      if t <  0          (x_i below y)
+
+with ``alpha = (n - k + 1/2)/n`` and ``beta = (k - 1/2)/n`` (the paper's
+Eq. (2) swaps them; these are the corrected weights).  The Clarke
+subdifferential at ``y`` is ``[g_lo, g_hi]`` with
+
+    g_lo(y) = alpha * n_lt - beta * (n - n_lt)
+    g_hi(y) = alpha * n_le - beta * (n - n_le)
+
+and ``0 in [g_lo, g_hi]  <=>  n_lt < k <= n_le  <=>  y == x_(k)``, so the
+counts both drive the optimizer and certify exactness.
+
+The selection engine in :mod:`repro_torch.core.selection` never touches the
+data directly; it talks to an :class:`Evaluator`, which answers one question
+per iteration — ``evaluator(y: (B,) pivots) -> FG`` with ``(B,)`` fields —
+plus the binned pass ``histogram(edges)``.  This module holds the counting
+measure only: every element has mass 1, so the measure fields ``m_lt`` /
+``m_le`` alias the int32 counts and every decision is an exact integer
+comparison.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Protocol
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+class FG(NamedTuple):
+    """Objective value, subdifferential interval and measure at a pivot.
+
+    ``m_lt`` / ``m_le`` carry the measure below / at-or-below the pivot and
+    drive every move / exact-hit decision; on the counting leg they alias
+    the int32 element counts ``n_lt`` / ``n_le``, which also drive the
+    cap-based stopping rule.
+    """
+
+    f: torch.Tensor      # objective value (normalized by n)
+    g_lo: torch.Tensor   # left one-sided derivative
+    g_hi: torch.Tensor   # right one-sided derivative
+    m_lt: torch.Tensor   # measure(x <  y) — drives narrowing + certificates
+    m_le: torch.Tensor   # measure(x <= y)
+    n_lt: torch.Tensor   # count(x <  y), int32 — drives the cap stopping rule
+    n_le: torch.Tensor   # count(x <= y), int32
+
+
+def os_weights(n, k, dtype=torch.float32):
+    """Normalized slope weights (alpha: below-pivot, beta: above-pivot)."""
+    n = torch.as_tensor(n).to(dtype)
+    k = torch.as_tensor(k).to(dtype)
+    alpha = (n - k + 0.5) / n
+    beta = (k - 0.5) / n
+    return alpha, beta
+
+
+def fg_from_partials(partials, n, k) -> FG:
+    """Combine the four counting-measure partials into :class:`FG`.
+
+    The measure fields alias the integer counts (counts ARE the measure on
+    this leg), so every downstream comparison is an exact int32 comparison.
+    """
+    sum_pos, sum_neg, n_lt, n_le = partials
+    dt = sum_pos.dtype
+    alpha, beta = os_weights(n, k, dt)
+    nf = torch.as_tensor(n).to(dt)
+    f = (beta * sum_pos + alpha * sum_neg) / nf
+    n_ltf = n_lt.to(dt)
+    n_lef = n_le.to(dt)
+    # one-sided derivatives: at x==y the term switches branch, so the left
+    # derivative counts ties as "above" and the right derivative as "below".
+    g_lo = alpha * n_ltf / nf - beta * (nf - n_ltf) / nf
+    g_hi = alpha * n_lef / nf - beta * (nf - n_lef) / nf
+    return FG(f=f, g_lo=g_lo, g_hi=g_hi, m_lt=n_lt, m_le=n_le,
+              n_lt=n_lt, n_le=n_le)
+
+
+class Evaluator(Protocol):
+    """Batched pivot evaluation: pivots ``(B,)`` -> :class:`FG` with ``(B,)``
+    fields.  ``n`` is the per-problem element count, ``k`` the 1-indexed
+    int32 target ranks ``(B,)``, ``weighted`` which measure leg runs.
+    ``init_stats`` returns per-problem ``(min, max, mean)``.
+
+    ``histogram`` bins each problem's data against the caller-supplied
+    REALIZED edges ``(B, nbins + 1)`` — built once per sweep by the engine
+    with ``kernels.ref.bin_edges``; implementations only COMPARE against
+    them and accept any sorted, possibly duplicated edge array — and
+    returns additive ``(cnt, mass, msum)`` slot vectors of shape
+    ``(B, nbins + 2)``: int32 counts, the per-slot measure (``cnt`` itself
+    on the counting leg) and the per-slot sums (``None`` on the counting
+    leg, which needs none).
+    """
+
+    n: int
+    k: torch.Tensor
+    weighted: bool
+
+    def __call__(self, y: torch.Tensor) -> FG: ...
+
+    def init_stats(self) -> tuple[torch.Tensor, torch.Tensor,
+                                  torch.Tensor]: ...
+
+    def histogram(
+        self, edges: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]: ...
+
+
+class RowsEvaluator:
+    """Independent rows: ``x`` is (B, n), one pivot and one ``k`` per row.
+
+    The data passes are ``kernels.ops.fused_partials_batched`` and
+    ``kernels.ops.fused_histogram_batched``: the CUDA kernels for f32/bf16
+    tensors on the card, the plain versions on the CPU and for f64.  A
+    strided view is copied once to contiguous memory, as the kernels read
+    rows of ``n`` consecutive elements.
+    """
+
+    weighted = False
+
+    def __init__(self, x: torch.Tensor, k):
+        self.x = x.contiguous()
+        self.n = int(x.shape[1])
+        self.k = torch.clamp(
+            torch.as_tensor(k, device=x.device).to(torch.int32), 1, self.n
+        ).broadcast_to((x.shape[0],))
+
+    def __call__(self, y: torch.Tensor) -> FG:
+        return fg_from_partials(ops.fused_partials_batched(self.x, y),
+                                self.n, self.k)
+
+    def histogram(self, edges):
+        cnt, bsum = ops.fused_histogram_batched(self.x, edges)
+        return cnt, cnt, bsum  # counting measure: the counts ARE the mass
+
+    def init_stats(self):
+        x = self.x
+        return (torch.amin(x, dim=1), torch.amax(x, dim=1),
+                torch.mean(x, dim=1))

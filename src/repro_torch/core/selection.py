@@ -1,0 +1,608 @@
+"""Selection (k-th order statistic) by convex minimization — Beliakov (2011).
+
+The PyTorch port of ``repro.core.selection``, counting leg.  The engine is
+batched-first: the bracket loops, the exact-hit certificates and the hybrid
+finalize operate on ``(B,)`` state tensors fed by an
+:class:`repro_torch.core.objective.Evaluator`; scalar selection is the
+``B = 1`` view of :func:`select_rows`.
+
+Methods (shared skeleton, they differ only in the next-pivot proposal):
+
+* ``binned``    — binned bracket descent (default for ``n >= BINNED_MIN_N``):
+  each data pass histograms the live bracket into ``nbins`` sub-intervals
+  (kernel K1 on the card), phase 1 runs ~2-3 sweeps until every row's
+  in-bracket count is under ``cap``, phase 2 compacts the survivors into a
+  ``(B, cap)`` buffer and finalizes exactly;
+* ``cp``        — Kelley's cutting-plane method (Algorithm 1 of the paper),
+  one fused pass (kernel K2 on the card) per iteration; ``cp_hybrid`` is an
+  alias;
+* ``bisection``, ``golden``, ``brent`` — the paper's baselines on the same
+  pass;
+* ``sort``      — a full sort (the paper's "GPU radix sort" baseline).
+
+Exactness: the loops carry the integer counts per row, which yields the
+exact-hit certificate ``n_lt < k <= n_le  =>  pivot == x_(k)``, the count
+stopping rule ``count(y_L < x <= y_R) <= cap`` that sizes the static
+``(B, cap)`` compaction, and the tie fallback (next distinct value above
+``y_L`` verified by one counting pass).  Invariant per row:
+``count(x <= y_L) < k <= count(x <= y_R)``.
+
+PyTorch idiom: the reference's ``lax.while_loop`` is a host loop with one
+``bool(live.any())`` device sync per sweep or iteration, and its ``vmap``
+over rows is a batch dimension written out.  Brackets of bf16 data are
+carried in f32 and kept ``(B, 1)``-shaped where they meet the data, so the
+comparisons run in f32 (torch would compare a bf16 tensor with a 0-dim f32
+tensor in bf16).
+
+Not in this slice: ``binned_polish``, ``prior=`` warm starts, the weighted
+leg, shared-x multi-k and the distributed engine (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import transforms
+from repro_torch.core.objective import FG, Evaluator, RowsEvaluator, os_weights
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import bin_edges
+
+METHODS = ("binned", "cp", "cp_hybrid", "bisection", "golden", "brent",
+           "sort")
+
+# method=None resolution: histogram sweeps win once the O(n) data pass
+# dominates (~3 sweeps vs ~15 CP passes); below this the per-sweep bin
+# bookkeeping isn't worth it and Kelley cuts converge in a few passes.
+BINNED_MIN_N = 1 << 16
+
+# Sub-intervals per histogram sweep on the kernel path (one sweep =
+# log2(128) = 7 bisection-equivalents of bracket narrowing).
+DEF_NBINS = 128
+
+# Plain-version default (CPU tensors and f64), equal to the reference's
+# jnp-path default so that CPU runs take the reference's sweeps.
+DEF_NBINS_JNP = 16
+
+# Status codes for SelectResult.status
+EXACT_HIT = 0       # pivot certified equal to x_(k) during iterations
+HYBRID_SORT = 1     # answer from compact+sort of the pivot interval
+TIE_FALLBACK = 2    # answer = next distinct value, certified by counts
+NOT_CONVERGED = 3   # approximate answer (bracket right end)
+
+
+class SelectResult(NamedTuple):
+    value: torch.Tensor   # the order statistic (exact unless status==3)
+    iters: torch.Tensor   # number of data passes this row was live for
+    status: torch.Tensor  # see codes above
+    y_lo: torch.Tensor    # final bracket
+    y_hi: torch.Tensor
+    n_in: torch.Tensor    # count(y_lo < x <= y_hi) at exit
+
+
+class BatchState(NamedTuple):
+    """Bracket-loop state; every field is (B,)-shaped except the host-side
+    global iteration counter ``it``."""
+    yL: torch.Tensor
+    fL: torch.Tensor
+    gL: torch.Tensor    # right one-sided derivative at yL (< 0)
+    yR: torch.Tensor
+    fR: torch.Tensor
+    gR: torch.Tensor    # left one-sided derivative at yR (> 0)
+    cleL: torch.Tensor  # lower bound on count(x <= yL)  (exact after 1st move)
+    cleR: torch.Tensor  # exact count(x <= yR)
+    t_exact: torch.Tensor
+    found_exact: torch.Tensor
+    iters: torch.Tensor  # per-row live-iteration count
+    it: int              # global (batch) iteration count
+    # golden/brent bookkeeping: previous probe (for the parabolic fit)
+    tp: torch.Tensor
+    fp: torch.Tensor
+
+
+def _resolve_method(method: Optional[str], n: int) -> str:
+    """``None``/``'auto'`` -> 'binned' for ``n >= BINNED_MIN_N``, else 'cp'."""
+    if method in (None, "auto"):
+        return "binned" if n >= BINNED_MIN_N else "cp"
+    if method == "binned_polish":
+        raise NotImplementedError("method='binned_polish' is not ported yet")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; one of {METHODS}")
+    return method
+
+
+def _resolve_nbins(nbins: Optional[int], x: torch.Tensor) -> int:
+    """``None`` -> ``DEF_NBINS`` where the histogram kernel runs (f32/bf16
+    on the card), ``DEF_NBINS_JNP`` where the plain version runs (the CPU,
+    and f64 anywhere).  Explicit values always win."""
+    if nbins is not None:
+        return int(nbins)
+    return DEF_NBINS if ops.uses_kernel(x) else DEF_NBINS_JNP
+
+
+def _propose_cp(s: BatchState):
+    """Kelley cut intersection: minimizer of max of the two support lines."""
+    return (s.fR - s.fL + s.yL * s.gL - s.yR * s.gR) / (s.gL - s.gR)
+
+
+def _propose_bisection(s: BatchState):
+    return 0.5 * (s.yL + s.yR)
+
+
+_INV_GOLDEN = 0.381966011250105  # 2 - golden ratio
+
+
+def _propose_golden(s: BatchState):
+    # Shrink from the side whose objective value is larger (descent side).
+    left = s.fL > s.fR
+    w = torch.full_like(s.yL, 1.0 - _INV_GOLDEN).masked_fill(left, _INV_GOLDEN)
+    return s.yL + w * (s.yR - s.yL)
+
+
+def _propose_brent(s: BatchState):
+    """Parabola through (yL,fL), (tp,fp), (yR,fR); midpoint safeguard."""
+    x1, f1, x2, f2, x3, f3 = s.yL, s.fL, s.tp, s.fp, s.yR, s.fR
+    num = (x2 - x1) ** 2 * (f2 - f3) - (x2 - x3) ** 2 * (f2 - f1)
+    den = (x2 - x1) * (f2 - f3) - (x2 - x3) * (f2 - f1)
+    ok = torch.abs(den) > 1e-30
+    t = x2 - 0.5 * num / torch.where(ok, den, 1.0)
+    mid = 0.5 * (s.yL + s.yR)
+    inside = (t > s.yL) & (t < s.yR)
+    return torch.where(ok & inside, t, mid)
+
+
+_PROPOSALS = {
+    "cp": _propose_cp,
+    "cp_hybrid": _propose_cp,
+    "bisection": _propose_bisection,
+    "golden": _propose_golden,
+    "brent": _propose_brent,
+}
+
+
+def _live(s: BatchState, cap):
+    return (~s.found_exact) & (s.cleR - s.cleL > cap) & (s.yR > s.yL)
+
+
+def _seed_state(ev: Evaluator):
+    """Shared loop seed: analytic bracket/cut init from one stats pass.
+
+    Returns ``(s0, xmin, xmax, kk, dtype)``.  The slopes use the paper's
+    normalized weights with the conservative tie count 1, which keeps the
+    support lines *lower* bounds (valid cuts) even with duplicated extremes.
+    """
+    xmin, xmax, xmean = ev.init_stats()
+    shape = torch.broadcast_shapes(xmin.shape, ev.k.shape)
+    dtype = xmin.dtype
+    dev = xmin.device
+    kk = ev.k.broadcast_to(shape)
+    xmin, xmax = xmin.broadcast_to(shape), xmax.broadcast_to(shape)
+    xmean = xmean.to(dtype).broadcast_to(shape)
+
+    nf = torch.full(shape, ev.n, dtype=dtype, device=dev)
+    alpha, beta = os_weights(nf, kk, dtype)
+    gL0 = alpha * (1.0 / nf) - beta * (nf - 1.0) / nf
+    gR0 = alpha * (nf - 1.0) / nf - beta * (1.0 / nf)
+
+    # Analytic init at the extremes (paper: single fused reduction).
+    fL0 = beta * (xmean - xmin)
+    fR0 = alpha * (xmax - xmean)
+
+    s0 = BatchState(
+        yL=xmin, fL=fL0, gL=gL0,
+        yR=xmax, fR=fR0, gR=gR0,
+        cleL=torch.ones(shape, dtype=torch.int32, device=dev),
+        cleR=torch.full(shape, ev.n, dtype=torch.int32, device=dev),
+        t_exact=torch.full(shape, float("nan"), dtype=dtype, device=dev),
+        found_exact=torch.zeros(shape, dtype=torch.bool, device=dev),
+        iters=torch.zeros(shape, dtype=torch.int32, device=dev),
+        it=0,
+        tp=0.5 * (xmin + xmax), fp=torch.maximum(fL0, fR0),
+    )
+    return s0, xmin, xmax, kk, dtype
+
+
+def bracket_loop_batched(
+    ev: Evaluator,
+    *,
+    method: str = "cp",
+    maxit: int = 64,
+    cap=0,
+):
+    """Run the batched bracket-shrinking loop against an evaluator.
+
+    Per live row, one pivot ``t`` per iteration: ``m_lt < k <= m_le``
+    certifies ``t`` as the order statistic, ``m_le < k`` moves the left end
+    to ``t``, otherwise the right end moves.  Rows stop independently once
+    certified or once ``count(y_L < x <= y_R) <= cap``; the loop ends when
+    no row is live or after ``maxit`` iterations.
+
+    Returns ``(final BatchState, xmin, xmax)`` with per-row extremes.
+    """
+    propose = _PROPOSALS[method]
+    s, xmin, xmax, kk, dtype = _seed_state(ev)
+    while s.it < maxit:
+        lv = _live(s, cap)
+        if not bool(lv.any()):
+            break
+        t = propose(s)
+        # numerical safeguard: keep strictly inside the open bracket (frozen
+        # rows get the midpoint — their updates are masked out anyway)
+        bad = ~torch.isfinite(t) | (t <= s.yL) | (t >= s.yR)
+        t = torch.where(bad, 0.5 * (s.yL + s.yR), t).to(dtype)
+        fg: FG = ev(t)
+        exact = (fg.m_lt < kk) & (kk <= fg.m_le) & lv
+        # exact => 0 in [g_lo, g_hi] => g_hi >= 0, so the two are disjoint:
+        move_left = (fg.m_le < kk) & lv  # t strictly left of the minimizer
+        move_right = lv & ~move_left & ~exact  # then m_lt >= k: right of it
+        s = BatchState(
+            yL=torch.where(move_left, t, s.yL),
+            fL=torch.where(move_left, fg.f, s.fL),
+            gL=torch.where(move_left, fg.g_hi, s.gL),
+            yR=torch.where(move_right, t, s.yR),
+            fR=torch.where(move_right, fg.f, s.fR),
+            gR=torch.where(move_right, fg.g_lo, s.gR),
+            cleL=torch.where(move_left, fg.n_le, s.cleL),
+            cleR=torch.where(move_right, fg.n_le, s.cleR),
+            t_exact=torch.where(exact, t, s.t_exact),
+            found_exact=s.found_exact | exact,
+            iters=s.iters + lv.to(torch.int32),
+            it=s.it + 1,
+            tp=torch.where(lv, t, s.tp), fp=torch.where(lv, fg.f, s.fp),
+        )
+    return s, xmin, xmax
+
+
+def _take(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``a[..., i]`` per row (``i`` one index per leading position)."""
+    return torch.gather(a, -1, i.to(torch.int64)[..., None])[..., 0]
+
+
+def binned_descent_step(cum, edges, yL, yR, kk):
+    """One binned-descent narrowing decision from prefix counts.
+
+    ``cum[..., j] = count(x <= e_j)`` at the realized ``edges``
+    ``(..., nbins+1)`` of the bracket ``[yL, yR]`` — the same array the
+    histogram pass binned against.  Returns
+    ``(yLn, yRn, cLn, cRn, jm1, jstar, hit_lo, exact, stall)``:
+
+    * ``jstar`` — first edge whose prefix count reaches ``kk``; the answer
+      lies in the single bin ``(e_{jstar-1}, e_jstar]``;
+    * ``hit_lo`` — ``jstar == 0``, i.e. ``count(x <= yL) >= k``: possible
+      only while ``yL`` is the initial minimum, and certifies
+      ``x_(k) == yL``;
+    * ``exact`` — ``hit_lo`` or ulp-collapse: ``(yLn, yRn]`` holds a single
+      representable value, so the invariant certifies ``x_(k) == yRn``;
+    * ``stall`` — the chosen bin IS the whole bracket (bin width underflowed
+      against denormal-scale data), or the prefix counts contradict the
+      bracket invariant (``cum[-1] < k``): freeze the row and let the
+      finalize's fallback resolve it.  A violated invariant never certifies.
+    """
+    reached = cum >= kk[..., None]
+    # first maximum of the 0/1 row (argmax on bool is not on every build)
+    jstar = torch.argmax(reached.to(torch.int32), dim=-1).to(torch.int32)
+    jm1 = torch.clamp(jstar - 1, min=0)
+    yLn, yRn = _take(edges, jm1), _take(edges, jstar)
+    cLn, cRn = _take(cum, jm1), _take(cum, jstar)
+    ok = reached[..., -1]
+    hit_lo = (jstar == 0) & reached[..., 0]
+    collapse = transforms.next_float(yLn) >= yRn
+    exact = (hit_lo | collapse) & ok
+    stall = ~exact & (~ok | ((yLn == yL) & (yRn == yR)))
+    return yLn, yRn, cLn, cRn, jm1, jstar, hit_lo, exact, stall
+
+
+def binned_loop_batched(
+    ev: Evaluator,
+    *,
+    nbins: int = DEF_NBINS,
+    maxit: int = 16,
+    cap=0,
+):
+    """Phase 1 of the binned two-phase schedule: histogram bracket descent.
+
+    Each sweep builds the bracket's realized edges once
+    (``kernels.ref.bin_edges``), calls ``ev.histogram(edges)`` — ONE fused
+    data pass — and narrows every live row's bracket to the single
+    sub-interval ``(e_{j-1}, e_j]`` whose prefix count straddles that row's
+    target (:func:`binned_descent_step`).  Brackets only move to REALIZED
+    edge values whose prefix counts were measured, so the row invariant
+    ``count(x <= yL) < k <= count(x <= yR)`` holds exactly at every step.
+    Rows stop once their in-bracket count is under ``cap``, on the exact
+    certificates, on a stall, or at ``maxit``.  A late ``hit_lo`` (the
+    invariant forbids it after sweep 1) is demoted to a stall.
+
+    Returns ``(BatchState, xmin, xmax)``; ``iters`` counts histogram sweeps.
+    """
+    s, xmin, xmax, kk, dtype = _seed_state(ev)
+    # Brackets narrow to realized edge values and the finalize recounts
+    # against exactly those values, so the loop state must not round edges
+    # through a storage dtype below the kernels' f32 (bf16 data would
+    # otherwise round yL up and break the count invariant).
+    dt = torch.promote_types(dtype, torch.float32)
+    s = s._replace(yL=s.yL.to(dt), yR=s.yR.to(dt),
+                   t_exact=s.t_exact.to(dt), tp=s.tp.to(dt))
+    stalled = torch.zeros_like(s.found_exact)
+    while s.it < maxit:
+        lv = _live(s, cap) & ~stalled
+        if not bool(lv.any()):
+            break
+        # the realized edges are computed ONCE here and shared by the data
+        # pass and the narrowing decision (the exactness contract)
+        edges = bin_edges(s.yL, s.yR, nbins)
+        cnt, _, _ = ev.histogram(edges)
+        # prefix counts at the realized edges: cum[..., j] = count(x <= e_j)
+        cum = torch.cumsum(cnt[..., :-1], dim=-1, dtype=torch.int32)
+        yLn, yRn, cLn, cRn, _, _, hit_lo, exact, stall = \
+            binned_descent_step(cum, edges, s.yL, s.yR, kk)
+        late_hit_lo = hit_lo & (s.it > 0)
+        exact = lv & exact & ~late_hit_lo
+        t_ex = torch.where(hit_lo, s.yL, yRn)
+        stall_n = lv & (stall | late_hit_lo)
+        upd = lv & ~exact & ~stall_n
+        s = s._replace(
+            yL=torch.where(upd, yLn, s.yL),
+            yR=torch.where(upd, yRn, s.yR),
+            cleL=torch.where(upd, cLn, s.cleL),
+            cleR=torch.where(upd, cRn, s.cleR),
+            t_exact=torch.where(exact, t_ex, s.t_exact),
+            found_exact=s.found_exact | exact,
+            iters=s.iters + lv.to(torch.int32),
+            it=s.it + 1,
+        )
+        stalled = stalled | stall_n
+    return s, xmin, xmax
+
+
+def _run_bracket_phase(ev, method, maxit, cap, nbins):
+    """Dispatch the phase-1 loop for a resolved method."""
+    if method == "binned":
+        return binned_loop_batched(ev, nbins=nbins, maxit=maxit, cap=cap)
+    return bracket_loop_batched(ev, method=method, maxit=maxit, cap=cap)
+
+
+def rank_compact(mask_in: torch.Tensor, cap: int, values: torch.Tensor,
+                 pad: torch.Tensor):
+    """First-``cap`` survivors of each row of a (B, n) mask by RANK GATHER.
+
+    The paper's ``copy_if`` as a static-shape gather: ``pos`` is each
+    element's inclusive survivor rank (an int32 cumsum of the mask), so the
+    i-th survivor's index is ``searchsorted(pos, i)``.  Returns the
+    ``(B, cap)`` buffer of ``values`` at the survivors (``pad`` past the
+    last one) and the survivor counts ``n_in``.
+    """
+    b, n = mask_in.shape
+    n_in = torch.sum(mask_in, dim=1, dtype=torch.int32)
+    pos = torch.cumsum(mask_in, dim=1, dtype=torch.int32)
+    want = torch.arange(1, cap + 1, dtype=torch.int32, device=mask_in.device)
+    idx = torch.searchsorted(pos, want.expand(b, cap).contiguous(),
+                             side="left").clamp(max=n - 1)
+    have = want[None, :] <= n_in[:, None]
+    return torch.where(have, torch.gather(values, 1, idx), pad), n_in
+
+
+def _compact_interval(x, yL, yR, cap):
+    """Phase-2 survivor compaction + fallback probes, row-wise (counting leg).
+
+    The open pivot interval ``(yL, yR]`` of each row lands in a (B, cap)
+    buffer via :func:`rank_compact` (first ``cap`` survivors in data order,
+    +inf pad), next to the counts the answer assembly needs: ``cL =
+    count(x <= yL)``, the in-bracket count, the next distinct value above
+    ``yL`` and its inclusive count (tie fallback verification).  The
+    brackets are (B, 1) columns, so bf16 data is compared in f32.
+    """
+    big = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    lo, hi = yL[:, None], yR[:, None]
+    mask_in = (x > lo) & (x <= hi)
+    cL = torch.sum(x <= lo, dim=1, dtype=torch.int32)
+    vnext = torch.amin(torch.where(x > lo, x, big), dim=1)
+    z, n_in = rank_compact(mask_in, cap, x, big)
+    m_le_v = torch.sum(x <= vnext[:, None], dim=1, dtype=torch.int32)
+    return z, cL, n_in, vnext, m_le_v
+
+
+def _assemble_answers(kk, s: BatchState, cap, zs, cLm, n_in, vnext, m_le_v,
+                      m_lt_max, xmin, xmax) -> SelectResult:
+    """Per-row answer/status cascade from the sorted ``(B, cap)`` buffer
+    ``zs`` and the exact integer counts."""
+    sort_idx = torch.clamp(kk - cLm - 1, 0, cap - 1)
+    ans_sort = _take(zs, sort_idx)
+    sort_ok = n_in <= cap
+    at_min = cLm >= kk
+    at_max = m_lt_max < kk
+    fallback_ok = (cLm < kk) & (kk <= m_le_v)
+
+    value = torch.where(
+        s.found_exact,
+        s.t_exact,
+        torch.where(sort_ok, ans_sort,
+                    torch.where(fallback_ok, vnext, s.yR)),
+    )
+    status = torch.where(
+        s.found_exact,
+        EXACT_HIT,
+        torch.where(
+            sort_ok,
+            HYBRID_SORT,
+            torch.where(fallback_ok, TIE_FALLBACK, NOT_CONVERGED),
+        ),
+    )
+    # Extreme shortcuts (the bracket invariant count(y_L) < k only holds for
+    # answers strictly inside the data range): if count(x <= y_L) >= k the
+    # answer is at or below y_L, which can only be the minimum.  Symmetric
+    # test at the max.  Also covers k==1, k==n and all-equal rows.
+    value = torch.where(at_min, xmin, torch.where(at_max, xmax, value))
+    status = torch.where(at_min | at_max, EXACT_HIT, status)
+    return SelectResult(
+        value=value, iters=s.iters, status=status.to(torch.int32),
+        y_lo=s.yL, y_hi=s.yR, n_in=n_in,
+    )
+
+
+def _finalize_rows(x, kk, s: BatchState, cap, xmin, xmax) -> SelectResult:
+    """Exact per-row recovery from the final brackets.
+
+    Pass 1 (the paper's ``copy_if`` + count, row-wise): compact each row's
+    open pivot interval into a (B, cap) buffer, count ``x <= y_L`` and find
+    the next distinct value above ``y_L``; one batched sort of the buffer.
+    Pass 2 (tie fallback verification): ``count(x <= vnext)`` per row.
+    """
+    z, cLm, n_in, vnext, m_le_v = _compact_interval(x, s.yL, s.yR, cap)
+    zs = torch.sort(z, dim=-1).values
+    m_lt_max = torch.sum(x < xmax[:, None], dim=1, dtype=torch.int32)
+    return _assemble_answers(kk, s, cap, zs, cLm, n_in, vnext, m_le_v,
+                             m_lt_max, xmin, xmax)
+
+
+def _default_cap(n: int) -> int:
+    # generous: >= 2 * sqrt-ish growth, bounded; paper observed |z| ~ 1-5% n.
+    return int(min(max(4096, n // 64), 1 << 19))
+
+
+def _default_cap_rows(n: int) -> int:
+    # Batched regimes keep a (B, cap) compaction buffer, so the per-row cap
+    # is tighter than the scalar default: a few more bracket iterations
+    # (cheap fused passes, shared by the whole batch) buy a much smaller
+    # batched sort.
+    return int(min(max(256, n // 64), 4096))
+
+
+def _map_bracket_back_rows(x, xt, s: BatchState) -> BatchState:
+    """Map a transformed-domain bracket back to original values, row-wise.
+
+    F is monotone non-decreasing in fp on the data, so
+        y_orig = max{x_i : F(x_i) <= y_t}
+    preserves counts exactly: count(x <= y_orig) == count(F(x) <= y_t).
+    Both loop invariants therefore transfer to the original domain.  On an
+    exact hit the t-space image may merge several distinct originals (F is
+    not injective in fp): collapse the bracket to the image's preimage set
+    and drop the certificate — the original-space finalize re-resolves it.
+    """
+    neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+    yL_t = torch.where(s.found_exact, s.t_exact, s.yL)[:, None]
+    yR_t = torch.where(s.found_exact, s.t_exact, s.yR)[:, None]
+    yL = torch.where(
+        s.found_exact,
+        torch.amax(torch.where(xt < yL_t, x, neg), dim=1),  # strict: preimage
+        torch.amax(torch.where(xt <= yL_t, x, neg), dim=1),
+    )
+    yR = torch.amax(torch.where(xt <= yR_t, x, neg), dim=1)
+    return s._replace(
+        yL=yL, yR=yR,
+        # exactness certificates do not survive the fp roundtrip:
+        found_exact=torch.zeros_like(s.found_exact),
+    )
+
+
+def select_rows(
+    x: torch.Tensor,
+    k,
+    *,
+    method: Optional[str] = None,
+    maxit: int = 64,
+    cap: Optional[int] = None,
+    transform: Optional[str] = None,
+    nbins: Optional[int] = None,
+    prior=None,
+) -> SelectResult:
+    """Rows-mode batched selection: ``x`` is (B, n), ``k`` scalar or (B,).
+
+    Every field of the returned :class:`SelectResult` is (B,)-shaped; row
+    ``i`` solves the independent problem ``x[i], k[i]``.  ``method=None``
+    resolves to 'binned' for ``n >= BINNED_MIN_N`` and 'cp' otherwise;
+    ``nbins`` sizes the binned sweeps (``None``: 128 where the kernel runs,
+    16 on the plain path); ``transform='log1p'`` runs the iterations on the
+    row-wise monotone image.  Computes on ``x``'s device.
+    """
+    if prior is not None:
+        raise NotImplementedError("prior= warm starts are not ported yet")
+    if x.dim() != 2:
+        raise ValueError(f"select_rows wants (B, n) data, got "
+                         f"{tuple(x.shape)}")
+    b, n = x.shape
+    method = _resolve_method(method, n)
+    nbins = _resolve_nbins(nbins, x)
+    if cap is None:
+        cap = _default_cap_rows(n)
+    cap = min(cap, n)
+    ks = torch.clamp(torch.as_tensor(k, device=x.device), 1, n).to(
+        torch.int32).broadcast_to((b,))
+
+    if method == "sort":
+        xs = torch.sort(x, dim=1).values
+        return SelectResult(
+            value=_take(xs, ks - 1),
+            iters=torch.zeros((b,), dtype=torch.int32, device=x.device),
+            status=torch.full((b,), EXACT_HIT, dtype=torch.int32,
+                              device=x.device),
+            y_lo=xs[:, 0], y_hi=xs[:, -1],
+            n_in=torch.full((b,), n, dtype=torch.int32, device=x.device),
+        )
+
+    if transform == "log1p":
+        xt = transforms.log1p_transform_rows(x)
+        s, _, _ = _run_bracket_phase(RowsEvaluator(xt, ks), method, maxit,
+                                     cap, nbins)
+        s = _map_bracket_back_rows(x, xt, s)
+        return _finalize_rows(x, ks, s, cap, torch.amin(x, dim=1),
+                              torch.amax(x, dim=1))
+    if transform is not None:
+        raise ValueError(f"unknown transform {transform!r}")
+
+    ev = RowsEvaluator(x, ks)
+    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins)
+    return _finalize_rows(x, ks, s, cap, xmin, xmax)
+
+
+def order_statistic(
+    x: torch.Tensor,
+    k,
+    *,
+    method: Optional[str] = None,
+    maxit: int = 64,
+    cap: Optional[int] = None,
+    transform: Optional[str] = None,
+    nbins: Optional[int] = None,
+    prior=None,
+) -> SelectResult:
+    """k-th smallest element of ``x`` (k is 1-indexed): the ``B = 1`` view
+    of :func:`select_rows` with the scalar cap policy (one generous
+    buffer).  ``cp`` and ``cp_hybrid`` are aliases."""
+    x = x.reshape(-1)
+    if cap is None:
+        cap = _default_cap(x.numel())
+    res = select_rows(
+        x[None, :], torch.as_tensor(k, device=x.device).reshape(1),
+        method=method, maxit=maxit, cap=cap, transform=transform,
+        nbins=nbins, prior=prior,
+    )
+    return SelectResult(*(a[0] for a in res))
+
+
+def median(x: torch.Tensor, **kw) -> SelectResult:
+    """Med(x) = x_([(n+1)/2]) (paper Sec. I convention)."""
+    return order_statistic(x, (x.numel() + 1) // 2, **kw)
+
+
+def ranks_from_quantiles(qs, n: int) -> torch.Tensor:
+    """Target ranks ``ceil(q * n)`` clipped to ``[1, n]``, resolved on the
+    host in f64, where every rank below 2^53 is exact (an f32 product is 4
+    ulps of an integer wide at n ~ 2^25 and can land on the wrong rank).
+    Returns int32 ranks on the CPU."""
+    if isinstance(qs, torch.Tensor):
+        qs = qs.detach().cpu().numpy()
+    qv = np.asarray(qs, np.float64)
+    return torch.as_tensor(
+        np.asarray(np.clip(np.ceil(qv * float(n)), 1, n), np.int32))
+
+
+def quantile(x: torch.Tensor, q, **kw) -> SelectResult:
+    """Lower empirical q-quantile: x_(ceil(q*n)) clipped to [1, n]."""
+    return order_statistic(x, ranks_from_quantiles(q, x.numel()), **kw)
+
+
+def topk_threshold(x: torch.Tensor, m, **kw) -> SelectResult:
+    """Value of the m-th largest element (for kNN / trimming)."""
+    m = torch.as_tensor(m, device=x.device).to(torch.int32)
+    return order_statistic(x, x.numel() - m + 1, **kw)

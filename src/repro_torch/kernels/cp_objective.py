@@ -1,0 +1,168 @@
+"""CUDA kernels of the selection engine's data passes, and their wrappers.
+
+Two hand-written kernels for Hopper (``sm_90a``), built from ``csrc/`` by
+:mod:`repro_torch.kernels._build` at first use:
+
+* K1 ``csrc/hist_batched.cu`` behind :func:`cp_histogram_batched` — the
+  binned sweep (replaces the TPU body ``_hist_kernel_batched`` of
+  ``repro/kernels/cp_objective.py``), counting leg without per-slot sums;
+* K2 ``csrc/fg_batched.cu`` behind :func:`cp_partials_batched` — the
+  cutting-plane pass (replaces ``_fg_kernel_batched``), counting leg.
+
+Each wrapper checks what the kernel takes and raises on anything else,
+allocates the outputs, launches on the current stream, raises on a
+non-zero ``cudaGetLastError`` and adds one to its entry in
+:data:`LAUNCHES`.  The plain versions live in :mod:`repro_torch.kernels.ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+# launches per wrapper since the last reset_launches(); a wrapper adds one
+# exactly where it launches its kernel
+LAUNCHES = {"cp_histogram_batched": 0, "cp_partials_batched": 0}
+
+# K1: blocks resident per SM that the grid aims to fill (integer atomics make
+# the counts independent of the block count, so it may follow the card)
+HIST_BLOCKS_PER_SM = 8
+HIST_THREADS = 256
+# shared memory a block may use without opting in: (nbins+1) edges + the
+# (nbins+2)-slot histogram must fit
+HIST_MAX_SMEM = 48 * 1024
+# K2: one block per FG_CHUNK elements of a row, at most FG_MAX_BLOCKS; a
+# function of n alone, so the per-block sums and their reduce repeat bit
+# for bit from run to run
+FG_CHUNK = 8192
+FG_MAX_BLOCKS = 1024
+MAX_ROWS = 65535  # grid.y limit
+
+_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "hist_batched": [_P, _P, _P, _I64, _I64, _I32, _I32, _P],
+    "fg_batched": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
+}
+_fns: dict = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _kernel_fn(lib_name: str, dtype: torch.dtype):
+    name = f"{lib_name}_{_KERNEL_DTYPES[dtype]}"
+    fn = _fns.get(name)
+    if fn is None:
+        lib = _build.load(lib_name)
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[lib_name]
+        fn.restype = ctypes.c_int
+        err = lib.cuda_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _fns[name] = fn
+        _fns[f"{lib_name}_error"] = err
+    return fn
+
+
+def _raise_on(rc: int, lib_name: str) -> None:
+    if rc != 0:
+        msg = _fns[f"{lib_name}_error"](rc).decode()
+        raise RuntimeError(f"{lib_name} kernel launch failed: CUDA error "
+                           f"{rc} ({msg})")
+
+
+def _check_data(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel input must be a CUDA tensor, got {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"kernel input must be float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"kernel input must be (B, n), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("kernel input must be contiguous")
+    if x.shape[0] > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} rows per launch, got "
+                         f"{x.shape[0]}")
+    if x.shape[1] >= 2 ** 31:
+        raise ValueError("int32 counts hold rows of fewer than 2^31 elements")
+
+
+def _check_side(t: torch.Tensor, x: torch.Tensor, shape, name: str) -> None:
+    if t.device != x.device:
+        raise ValueError(f"{name} must be on {x.device}, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def hist_blocks_per_row(rows: int, n: int, device) -> int:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_row = -(-sms * HIST_BLOCKS_PER_SM // rows)
+    return max(1, min(per_row, -(-n // HIST_THREADS)))
+
+
+def fg_blocks(n: int) -> int:
+    return max(1, min(-(-n // FG_CHUNK), FG_MAX_BLOCKS))
+
+
+def cp_histogram_batched(x: torch.Tensor, edges: torch.Tensor):
+    """K1: per-row slot counts of ``x`` (B, n) f32/bf16 against realized
+    f32 ``edges`` (B, nbins+1).  Returns ``(cnt, None)`` with ``cnt`` int32
+    (B, nbins + 2), slot layout as ``ref.searchsorted_slots``."""
+    _check_data(x)
+    rows, n = x.shape
+    nedges = edges.shape[-1] if edges.dim() == 2 else 0
+    if nedges < 1:
+        raise ValueError(f"edges must be (B, nbins + 1), got "
+                         f"{tuple(edges.shape)}")
+    _check_side(edges, x, (rows, nedges), "edges")
+    smem = (2 * nedges + 1) * 4
+    if smem > HIST_MAX_SMEM:
+        raise ValueError(f"{nedges - 1} bins need {smem} bytes of shared "
+                         f"memory; the kernel holds at most {HIST_MAX_SMEM}")
+    cnt = torch.zeros((rows, nedges + 1), dtype=torch.int32, device=x.device)
+    if rows == 0:
+        return cnt, None
+    fn = _kernel_fn("hist_batched", x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), edges.data_ptr(), cnt.data_ptr(), rows, n,
+                nedges, hist_blocks_per_row(rows, n, x.device), stream)
+    _raise_on(rc, "hist_batched")
+    LAUNCHES["cp_histogram_batched"] += 1
+    return cnt, None
+
+
+def cp_partials_batched(x: torch.Tensor, y: torch.Tensor):
+    """K2: per-row ``(sum_pos, sum_neg, n_lt, n_le)`` of ``d = x - y`` for
+    ``x`` (B, n) f32/bf16 and pivots ``y`` (B,) (cast to f32, as the
+    kernel compares in f32).  Sums f32, counts int32, each (B,)."""
+    _check_data(x)
+    rows, n = x.shape
+    y = y.to(torch.float32).contiguous()
+    _check_side(y, x, (rows,), "y")
+    nblk = fg_blocks(n)
+    fsum = torch.empty((rows, nblk, 2), dtype=torch.float32, device=x.device)
+    cnt = torch.empty((rows, nblk, 2), dtype=torch.int32, device=x.device)
+    if rows > 0:
+        fn = _kernel_fn("fg_batched", x.dtype)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = fn(x.data_ptr(), y.data_ptr(), fsum.data_ptr(),
+                    cnt.data_ptr(), rows, n, nblk, stream)
+        _raise_on(rc, "fg_batched")
+        LAUNCHES["cp_partials_batched"] += 1
+    s = torch.sum(fsum, dim=1)
+    c = torch.sum(cnt, dim=1, dtype=torch.int32)
+    return s[:, 0], s[:, 1], c[:, 0], c[:, 1]
