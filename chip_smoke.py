@@ -8,24 +8,38 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
-2. K1 (histogram) against its plain version on the card, counts equal bit
-   for bit, at the main path's (1, 2^27) and (64, 2^20) and at an n that
-   is a multiple of no grid stride (``K1_SHAPES``), f32 and bf16, with
-   ±inf, NaN, signed zeros and denormals in the data and full-range,
+2. K1 (row histogram) against its plain version on the card, counts equal
+   bit for bit, at the main path's (1, 2^27) and (64, 2^20) and at an n
+   that is a multiple of no grid stride (``K1_SHAPES``), f32 and bf16,
+   with ±inf, NaN, signed zeros and denormals in the data and full-range,
    data-scale, narrow, duplicated-edge and denormal edge ladders;
-3. K2 (partials) against its plain version at those shapes and the auto
-   cp leg's n = 50,000 (``K2_SHAPES``): counts equal, NaN patterns equal,
-   sums within ``SUM_RTOL``;
-4. the port's main path at full size through its public entry points:
-   ``median`` of n = 2^27 f32 (binned leg, K1), ``order_statistic`` with
-   ``method='cp'`` at 2^27 and auto at n = 50,000 (cp leg, K2),
-   ``select_rows`` on (64, 2^20) with per-row k, and a bf16 median; each
-   value checked against ``torch.sort`` on the card, launch counts of each
-   run read from zero;
-5. timings with CUDA events (medians of repeated runs after warm-up): each
-   kernel, its plain version and its bound; the median and ``select_rows``
-   end to end with ``torch.kthvalue`` / ``torch.sort`` as yardsticks that
-   the port never calls; a breakdown of the 2^27 median.
+3. K2 (row partials) against its plain version at those shapes and the
+   auto cp leg's n = 50,000 (``K2_SHAPES``): counts equal, NaN patterns
+   equal, sums within ``SUM_RTOL``;
+4. K3 (shared-x multi-ladder histogram) against its plain version, counts
+   bit for bit: n = 2^27 with K = 16 identical first-sweep ladders and
+   with the five ladder kinds cycled over K = 16, n = ``N_ODD`` with
+   K = 64 (four groups of 16 ladders), with K = 3 at 8192 bins (one ladder
+   per block, past 48 KB of shared memory) and with K = 1 through
+   ``cp_histogram``;
+5. K4 (shared-x multi-pivot partials) against its plain version at
+   (2^27, 16), (50,000, 16) and (``N_ODD``, 64), and K = 1 through
+   ``cp_partials``: counts equal, sums within ``SUM_RTOL``;
+6. the port's main paths at full size through their public entry points,
+   each value checked against ``torch.sort`` on the card and the launch
+   counts of each run read from zero: ``median`` of n = 2^27 f32 (binned
+   leg, K1), ``order_statistic`` with ``method='cp'`` at 2^27 and auto at
+   n = 50,000 (cp leg, K2), ``select_rows`` on (64, 2^20) with per-row k,
+   a bf16 median; then shared-x multi-k: ``quantiles`` at 16 levels of
+   n = 2^27 f32 and bf16 (binned leg, K3, one launch per sweep for all
+   16 targets), ``multi_order_statistic(method='cp')`` at 2^27 and
+   ``quantiles`` auto at n = 50,000 (cp leg, K4);
+7. timings with CUDA events (medians of repeated runs after warm-up): each
+   kernel, its plain version and its bound; the median, ``select_rows``
+   and the 16 quantiles end to end with ``torch.kthvalue`` / ``torch.sort``
+   (plus a gather) as yardsticks that the port never calls, and the 16
+   quantiles also against 16 separate ``order_statistic`` calls; a
+   breakdown of the 2^27 median and of the 16 quantiles.
 
 The line before the last two is ``{"kernels": [...]}``; then the
 ``nvidia-smi`` name and power limit; the last line is
@@ -63,6 +77,8 @@ N_ODD = (1 << 20) + 3  # a multiple of no grid stride: the tail loops run
 K1_SHAPES = ((1, N_BIG, 1), (ROWS, N_ROW, 2), (1, N_ODD, 11))
 K2_SHAPES = ((1, N_BIG, 3), (ROWS, N_ROW, 4), (1, N_SMALL, 12),
              (1, N_ODD, 13))
+# the shared-x multi-k path: 16 quantile levels (1/17 .. 16/17)
+QS16 = np.arange(1, 17) / 17
 SPECIALS = [float("inf"), float("-inf"), float("nan"), 0.0, -0.0, 1e-44,
             -1e-44, 1e-39, -3e-39, 3e38, -3e38]
 
@@ -191,6 +207,95 @@ def check_k2(cpo, ref) -> dict:
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel}
 
 
+def check_k3(cpo, ref) -> dict:
+    """K3 counts against the plain version; returns the largest
+    |kernel - plain| count difference (it raises unless that is 0)."""
+    kinds = bracket_kinds()
+    worst = 0
+
+    def compare(got, want, label):
+        nonlocal worst
+        torch.cuda.synchronize()
+        worst = max(worst, int((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 counts differ from the plain version: "
+                                 f"{label}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x = special_data(1, N_BIG, 21)[0].to(dtype)
+        for label, ladder in (("16 identical", [kinds[1]] * 16),
+                              ("5 kinds cycled over 16",
+                               [kinds[j % 5] for j in range(16)])):
+            e = edge_ladders(ref, ladder, 128)
+            got, _ = cpo.cp_histogram_multi(x, e)
+            want, _ = ref.cp_histogram_multi_ref(x, e, want_sums=False)
+            compare(got, want, f"n=2^27 {dtype} {label}")
+            assert torch.all(got.sum(dim=1) == N_BIG)
+        del x
+        x = special_data(1, N_ODD, 22)[0].to(dtype)
+        for k, nbins in ((64, 128), (3, 8192)):
+            e = edge_ladders(ref, [kinds[j % 5] for j in range(k)], nbins)
+            got, _ = cpo.cp_histogram_multi(x, e)
+            want, _ = ref.cp_histogram_multi_ref(x, e, want_sums=False)
+            compare(got, want, f"n={N_ODD} {dtype} K={k} nbins={nbins}")
+        for kind in kinds:
+            e1 = edge_ladders(ref, [kind], 128)[0]
+            got, _ = cpo.cp_histogram(x, e1)
+            want, _ = ref.cp_histogram_ref(x, e1, want_sums=False)
+            compare(got, want, f"n={N_ODD} {dtype} K=1 {kind}")
+    log(f"K3 hist_multi == plain version bit for bit at n=2^27 K=16 "
+        f"(identical and cycled ladders), n={N_ODD} K=64, K=3 at 8192 bins "
+        f"and K=1 (cp_histogram), f32 and bf16, with inf/NaN/denormals")
+    return {"max_abs_err": float(worst)}
+
+
+def check_k4(cpo, ref) -> dict:
+    worst_abs, worst_rel = 0.0, 0.0
+
+    def compare(got, want, label):
+        nonlocal worst_abs, worst_rel
+        torch.cuda.synchronize()
+        for g, w in zip(got[2:], want[2:]):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K4 counts differ: {label}")
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g, w, rtol=SUM_RTOL, atol=0,
+                                       equal_nan=True)
+            fin = torch.isfinite(w) & (w != 0)
+            if bool(fin.any()):
+                err = (g - w).abs()[fin]
+                worst_abs = max(worst_abs, float(err.max()))
+                worst_rel = max(worst_rel, float((err / w.abs()[fin]).max()))
+
+    pivots = torch.tensor([0.0, 1e-3, -0.5, 1e-44, 3e38, 1.5, -2.0, 0.7],
+                          device=DEVICE)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, k, seed in ((N_BIG, 16, 23), (N_SMALL, 16, 24),
+                           (N_ODD, 64, 25)):
+            for special in (True, False):
+                if special:
+                    x = special_data(1, n, seed)[0]
+                else:
+                    x = torch.randn(n, generator=gen(seed + 10),
+                                    device=DEVICE)
+                x = x.to(dtype)
+                y = pivots[torch.arange(k, device=DEVICE) % pivots.numel()]
+                y[-1] = x[12345].float()  # a pivot on a data value
+                label = f"n={n} K={k} {dtype} special={special}"
+                compare(cpo.cp_partials_multi(x, y),
+                        ref.cp_partials_multi_ref(x, y), label)
+                got = cpo.cp_partials(x, y[-1])
+                compare([g[None] for g in got],
+                        ref.cp_partials_multi_ref(x, y[-1:]),
+                        label + " K=1")
+                del x
+    log(f"K4 fg_multi == plain version: counts bit for bit, sums within "
+        f"rtol {SUM_RTOL} (worst {worst_rel:.3g}), (n, K) (2^27, 16), "
+        f"({N_SMALL}, 16), ({N_ODD}, 64) and K=1 (cp_partials), f32 and "
+        f"bf16, with and without inf/NaN/denormals")
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel}
+
+
 def drive(sel, cpo, label, fn, want, expect_kernel):
     """Run one main-path call with the launch counts read from zero."""
     cpo.reset_launches()
@@ -214,7 +319,7 @@ def drive(sel, cpo, label, fn, want, expect_kernel):
 
 
 def main_path(sel, cpo) -> dict:
-    total = {"cp_histogram_batched": 0, "cp_partials_batched": 0}
+    total = dict.fromkeys(cpo.LAUNCHES, 0)
 
     def add(launches):
         for k, v in launches.items():
@@ -264,6 +369,58 @@ def main_path(sel, cpo) -> dict:
     return total
 
 
+def multi_k_path(sel, cpo) -> dict:
+    """Shared-x multi-k at full size: 16 quantile levels of one array."""
+    total = dict.fromkeys(cpo.LAUNCHES, 0)
+
+    def add(launches, kernel, res):
+        # one launch per sweep or pass for ALL targets, and no row kernel
+        assert launches[kernel] == int(res.iters.max()), (launches, res.iters)
+        assert launches["cp_histogram_batched"] == 0
+        assert launches["cp_partials_batched"] == 0
+        for k, v in launches.items():
+            total[k] += v
+
+    x = torch.randn(N_BIG, generator=gen(31), device=DEVICE)
+    xs = torch.sort(x).values
+    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
+    want = xs[ks.long() - 1]
+    launches, res = drive(sel, cpo, "quantiles K=16 n=2^27 f32 (binned)",
+                          lambda: sel.quantiles(x, QS16), want,
+                          "cp_histogram_multi")
+    add(launches, "cp_histogram_multi", res)
+    launches, res = drive(
+        sel, cpo, "multi_order_statistic K=16 n=2^27 method=cp",
+        lambda: sel.multi_order_statistic(x, ks, method="cp"), want,
+        "cp_partials_multi")
+    add(launches, "cp_partials_multi", res)
+    del xs
+
+    xb = x.to(torch.bfloat16)
+    launches, res = drive(sel, cpo, "quantiles K=16 n=2^27 bf16 (binned)",
+                          lambda: sel.quantiles(xb, QS16),
+                          torch.sort(xb).values[ks.long() - 1],
+                          "cp_histogram_multi")
+    add(launches, "cp_histogram_multi", res)
+    del xb
+
+    xsmall = x[:N_SMALL].contiguous()
+    ks_small = sel.ranks_from_quantiles(QS16, N_SMALL).to(DEVICE).long()
+    launches, res = drive(sel, cpo, f"quantiles K=16 n={N_SMALL} auto (cp)",
+                          lambda: sel.quantiles(xsmall, QS16),
+                          torch.sort(xsmall).values[ks_small - 1],
+                          "cp_partials_multi")
+    add(launches, "cp_partials_multi", res)
+    return total
+
+
+def bound(nbytes, ops):
+    """The least time for ``nbytes`` of traffic and ``ops`` f32 operations,
+    and which of the two bounds it."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def timings(sel, cpo, ref, obj) -> dict:
     out = {}
     x = torch.randn((1, N_BIG), generator=gen(8), device=DEVICE)
@@ -288,10 +445,6 @@ def timings(sel, cpo, ref, obj) -> dict:
                        rounds=3)
     k2_bytes = x.numel() * 4 + 4 + cpo.fg_blocks(N_BIG) * 16
     k2_ops = 7 * N_BIG
-
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
 
     out["k1"] = dict(ms=k1, plain_ms=k1_plain, bound=bound(k1_bytes, k1_ops),
                      narrow_ms=k1_narrow, histc_ms=histc)
@@ -340,6 +493,78 @@ def timings(sel, cpo, ref, obj) -> dict:
     return out
 
 
+def k3_work(x, edges, cnt):
+    """Bytes and operations that binning ``x`` against ``edges`` needs on
+    this data: one read of x, and per element and DISTINCT ladder two
+    compares, plus a binary search for each in-bracket element."""
+    nbytes = (x.numel() * x.element_size() + edges.numel() * 4
+              + cnt.numel() * 4)
+    inside = {}  # in-bracket count per distinct ladder
+    for e, c in zip(edges.cpu(), cnt.cpu()):
+        inside.setdefault(e.numpy().tobytes(), x.numel() - int(c[0] + c[-1]))
+    steps = math.ceil(math.log2(edges.shape[1]))
+    return nbytes, (2 * x.numel() * len(inside)
+                    + sum(inside.values()) * steps)
+
+
+def timings_multi(sel, cpo, ref, obj) -> dict:
+    """K3 and K4 at K = 16 on n = 2^27, and the 16 quantiles end to end."""
+    out = {}
+    x = torch.randn(N_BIG, generator=gen(32), device=DEVICE)
+    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
+    # K3 at sweep 1: every target's bracket is [min, max], 16 identical
+    # ladders, every element in bracket
+    e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
+    e1 = e1.contiguous()
+    cnt1, _ = cpo.cp_histogram_multi(x, e1)
+    # K3 at sweep 2: the 16 distinct narrow brackets that sweep 1 chose
+    cum = torch.cumsum(cnt1[:, :-1], dim=-1, dtype=torch.int32)
+    yl, yr, *_ = sel.binned_descent_step(cum, e1, e1[:, 0], e1[:, -1], ks)
+    e2 = ref.bin_edges(yl, yr, 128).contiguous()
+    cnt2, _ = cpo.cp_histogram_multi(x, e2)
+    for label, e, cnt in (("k3_first", e1, cnt1), ("k3_narrow", e2, cnt2)):
+        out[label] = dict(
+            ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, e), reps=20),
+            plain_ms=cuda_ms(lambda: ref.cp_histogram_multi_ref(
+                x, e, want_sums=False), reps=1, rounds=3),
+            bound=bound(*k3_work(x, e, cnt)),
+            distinct_ladders=len({r.numpy().tobytes() for r in e.cpu()}))
+    # K4 at 16 pivots on the data's quantiles
+    y = torch.sort(x).values[ks.long() - 1]
+    nblk = cpo.fg_blocks(N_BIG)
+    out["k4"] = dict(
+        ms=cuda_ms(lambda: cpo.cp_partials_multi(x, y), reps=20),
+        plain_ms=cuda_ms(lambda: ref.cp_partials_multi_ref(x, y), reps=1,
+                         rounds=3),
+        bound=bound(N_BIG * 4 + 16 * 4 + nblk * 16 * 16, 7 * 16 * N_BIG))
+
+    # end to end
+    out["quantiles_ms"] = cuda_ms(lambda: sel.quantiles(x, QS16), reps=1,
+                                  rounds=5)
+    out["sort_gather_ms"] = cuda_ms(
+        lambda: torch.sort(x).values[ks.long() - 1], reps=1, rounds=5)
+    ks_host = [int(k) for k in ks.cpu()]
+    out["sixteen_order_statistic_ms"] = cuda_ms(
+        lambda: [sel.order_statistic(x, k) for k in ks_host], reps=1,
+        rounds=3, warmup=1)
+    out["multi_cp_ms"] = cuda_ms(
+        lambda: sel.multi_order_statistic(x, ks, method="cp"), reps=1,
+        rounds=3)
+
+    # where the time goes: stats pass, sweep loop (which includes the stats
+    # pass) and the shared finalize (16 sequential passes over x)
+    ev = obj.SharedEvaluator(x, ks)
+    cap = sel._default_cap_rows(N_BIG)
+    out["quantiles_stats_ms"] = cuda_ms(ev.init_stats, reps=1, rounds=5)
+    out["quantiles_loop_ms"] = cuda_ms(lambda: sel.binned_loop_batched(
+        ev, nbins=128, cap=cap), reps=1, rounds=5)
+    s, xmin, xmax = sel.binned_loop_batched(ev, nbins=128, cap=cap)
+    out["quantiles_finalize_ms"] = cuda_ms(lambda: sel._finalize_shared(
+        ev.x, ev.k, s, cap, xmin, xmax), reps=1, rounds=5)
+    out["quantiles_sweeps"] = int(s.iters.max())
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: "
@@ -367,17 +592,29 @@ def main() -> None:
     t0 = time.perf_counter()
     k1_check = check_k1(cpo, ref)
     k2_check = check_k2(cpo, ref)
+    k3_check = check_k3(cpo, ref)
+    k4_check = check_k4(cpo, ref)
     log(f"kernel checks took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     launches = main_path(sel, cpo)
-    log(f"main path took {time.perf_counter() - t0:.1f} s; launches "
-        f"{launches}")
+    multi = multi_k_path(sel, cpo)
+    log(f"main paths took {time.perf_counter() - t0:.1f} s; launches "
+        f"rows/scalar {launches}, multi-k {multi}")
+    for key, count in (("cp_histogram_batched", launches),
+                       ("cp_partials_batched", launches),
+                       ("cp_histogram_multi", multi),
+                       ("cp_partials_multi", multi)):
+        if count[key] == 0:
+            raise AssertionError(f"{key} never launched on its main path")
 
     t0 = time.perf_counter()
     tm = timings(sel, cpo, ref, obj)
+    tmm = timings_multi(sel, cpo, ref, obj)
     log(f"timings took {time.perf_counter() - t0:.1f} s")
     log("timings (ms, " + name + ", " + smi + "): " + json.dumps(tm))
+    log("multi-k timings (ms, " + name + ", " + smi + "): "
+        + json.dumps(tmm))
 
     kernels = [
         {"name": "hist_batched (K1)", "route": "cuda",
@@ -404,6 +641,37 @@ def main() -> None:
          "library_ms": None,
          "shape": "(1, 2^27) f32, one pivot",
          "rows_64x2^20_ms": tm["k2_rows_ms"]},
+        {"name": "hist_multi (K3)", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/hist_multi.cu",
+         "replaces": "src/repro/kernels/cp_objective.py:197",
+         "launches": multi["cp_histogram_multi"],
+         "max_abs_err": k3_check["max_abs_err"],
+         "ms": tmm["k3_first"]["ms"], "plain_ms": tmm["k3_first"]["plain_ms"],
+         "bound_ms": tmm["k3_first"]["bound"][0],
+         "bound_by": tmm["k3_first"]["bound"][1],
+         "library_ms": None,
+         "shape": "(2^27,) f32, K=16 identical first-sweep ladders, 128 bins",
+         "narrow_sweep_ms": tmm["k3_narrow"]["ms"],
+         "narrow_sweep_plain_ms": tmm["k3_narrow"]["plain_ms"],
+         "narrow_sweep_bound_ms": tmm["k3_narrow"]["bound"][0],
+         "narrow_sweep_bound_by": tmm["k3_narrow"]["bound"][1],
+         "narrow_sweep_distinct_ladders":
+             tmm["k3_narrow"]["distinct_ladders"],
+         "nearest_library": "none: no PyTorch call bins one array against "
+                            "K given ladders (per ladder, torch.searchsorted "
+                            "+ torch.bincount is the plain version)"},
+        {"name": "fg_multi (K4)", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fg_multi.cu",
+         "replaces": "src/repro/kernels/cp_objective.py:155",
+         "launches": multi["cp_partials_multi"],
+         "max_abs_err": k4_check["max_abs_err"],
+         "max_rel_err": k4_check["max_rel_err"],
+         "ms": tmm["k4"]["ms"], "plain_ms": tmm["k4"]["plain_ms"],
+         "bound_ms": tmm["k4"]["bound"][0], "bound_by": tmm["k4"]["bound"][1],
+         "library_ms": None,
+         "shape": "(2^27,) f32, K=16 pivots",
+         "nearest_library": "none: no PyTorch call returns the partials of "
+                            "K pivots from one read of the array"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,4 +1,5 @@
 """Selection engine of the port: objective, transforms and selection."""
+from repro_torch.core.objective import SharedEvaluator
 from repro_torch.core.selection import (
     EXACT_HIT,
     HYBRID_SORT,
@@ -6,8 +7,10 @@ from repro_torch.core.selection import (
     TIE_FALLBACK,
     SelectResult,
     median,
+    multi_order_statistic,
     order_statistic,
     quantile,
+    quantiles,
     select_rows,
     topk_threshold,
 )

@@ -143,3 +143,37 @@ class RowsEvaluator:
         x = self.x
         return (torch.amin(x, dim=1), torch.amax(x, dim=1),
                 torch.mean(x, dim=1))
+
+
+class SharedEvaluator:
+    """One shared array, K targets (``multi_order_statistic``).
+
+    The data passes are ``kernels.ops.fused_partials_multi`` and
+    ``kernels.ops.fused_histogram_multi``: on the card each reads ``x``
+    once for all K pivots or ladders (kernels K4 and K3), on the CPU the
+    plain versions take one pivot or ladder at a time.  No ``(K, n)``
+    tensor exists.  A strided view is copied once to contiguous memory.
+    """
+
+    weighted = False
+
+    def __init__(self, x: torch.Tensor, ks):
+        self.x = x.reshape(-1).contiguous()
+        self.n = int(self.x.numel())
+        self.k = torch.clamp(
+            torch.as_tensor(ks, device=x.device).reshape(-1), 1, self.n
+        ).to(torch.int32)
+
+    def __call__(self, y: torch.Tensor) -> FG:
+        return fg_from_partials(ops.fused_partials_multi(self.x, y),
+                                self.n, self.k)
+
+    def histogram(self, edges):
+        cnt, bsum = ops.fused_histogram_multi(self.x, edges)
+        return cnt, cnt, bsum  # counting measure: the counts ARE the mass
+
+    def init_stats(self):
+        x, shape = self.x, self.k.shape
+        return (torch.amin(x).broadcast_to(shape),
+                torch.amax(x).broadcast_to(shape),
+                torch.mean(x).broadcast_to(shape))

@@ -4,7 +4,10 @@ The PyTorch port of ``repro.core.selection``, counting leg.  The engine is
 batched-first: the bracket loops, the exact-hit certificates and the hybrid
 finalize operate on ``(B,)`` state tensors fed by an
 :class:`repro_torch.core.objective.Evaluator`; scalar selection is the
-``B = 1`` view of :func:`select_rows`.
+``B = 1`` view of :func:`select_rows`, and :func:`multi_order_statistic` /
+:func:`quantiles` run K targets of ONE array through the same loops on a
+:class:`~repro_torch.core.objective.SharedEvaluator` (kernels K3 and K4 on
+the card: one read of the array per sweep or pass for all K).
 
 Methods (shared skeleton, they differ only in the next-pivot proposal):
 
@@ -35,7 +38,7 @@ comparisons run in f32 (torch would compare a bf16 tensor with a 0-dim f32
 tensor in bf16).
 
 Not in this slice: ``binned_polish``, ``prior=`` warm starts, the weighted
-leg, shared-x multi-k and the distributed engine (see ROADMAP.md).
+leg, segmented selection and the distributed engine (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import transforms
-from repro_torch.core.objective import FG, Evaluator, RowsEvaluator, os_weights
+from repro_torch.core.objective import (FG, Evaluator, RowsEvaluator,
+                                        SharedEvaluator, os_weights)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import bin_edges
 
@@ -455,6 +459,26 @@ def _finalize_rows(x, kk, s: BatchState, cap, xmin, xmax) -> SelectResult:
                              m_lt_max, xmin, xmax)
 
 
+def _finalize_shared(x, kk, s: BatchState, cap, xmin, xmax) -> SelectResult:
+    """Shared-x exact finalize on per-pivot compacted buffers.
+
+    The compaction runs pivot by pivot against the ONE ``(n,)`` array (a
+    ``(1, n)`` view through :func:`_compact_interval`), so peak memory
+    stays O(n + K*cap) and no ``(K, n)`` tensor exists.  ``xmin``/``xmax``
+    are (K,) broadcasts of the global extremes, so one shared count gives
+    every pivot's ``count(x < max)``.
+    """
+    x = x.reshape(1, -1)
+    parts = [_compact_interval(x, s.yL[j:j + 1], s.yR[j:j + 1], cap)
+             for j in range(kk.shape[0])]
+    z, cLm, n_in, vnext, m_le_v = (torch.cat(p) for p in zip(*parts))
+    zs = torch.sort(z, dim=-1).values
+    m_lt_max = torch.sum(x < torch.amax(xmax), dtype=torch.int32
+                         ).broadcast_to(kk.shape)
+    return _assemble_answers(kk, s, cap, zs, cLm, n_in, vnext, m_le_v,
+                             m_lt_max, xmin, xmax)
+
+
 def _default_cap(n: int) -> int:
     # generous: >= 2 * sqrt-ish growth, bounded; paper observed |z| ~ 1-5% n.
     return int(min(max(4096, n // 64), 1 << 19))
@@ -490,6 +514,31 @@ def _map_bracket_back_rows(x, xt, s: BatchState) -> BatchState:
     yR = torch.amax(torch.where(xt <= yR_t, x, neg), dim=1)
     return s._replace(
         yL=yL, yR=yR,
+        # exactness certificates do not survive the fp roundtrip:
+        found_exact=torch.zeros_like(s.found_exact),
+    )
+
+
+def _map_bracket_back_shared(x, xt, s: BatchState) -> BatchState:
+    """Shared-x analogue of :func:`_map_bracket_back_rows`: one ``(n,)``
+    array, (K,) transformed brackets, mapped back by the same
+    count-preserving preimage reductions pivot by pivot, so the ``(K, n)``
+    broadcast never materializes."""
+    neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+    x, xt = x.reshape(-1), xt.reshape(-1)
+    yL_t = torch.where(s.found_exact, s.t_exact, s.yL)
+    yR_t = torch.where(s.found_exact, s.t_exact, s.yR)
+    yL, yR = [], []
+    for j in range(yL_t.shape[0]):
+        # (1,)-shaped bounds, so bf16 data is compared in f32
+        lo, hi = yL_t[j:j + 1], yR_t[j:j + 1]
+        yL.append(torch.where(
+            s.found_exact[j:j + 1],
+            torch.amax(torch.where(xt < lo, x, neg)),  # strict: preimage
+            torch.amax(torch.where(xt <= lo, x, neg))))
+        yR.append(torch.amax(torch.where(xt <= hi, x, neg)).reshape(1))
+    return s._replace(
+        yL=torch.cat(yL), yR=torch.cat(yR),
         # exactness certificates do not survive the fp roundtrip:
         found_exact=torch.zeros_like(s.found_exact),
     )
@@ -606,3 +655,72 @@ def topk_threshold(x: torch.Tensor, m, **kw) -> SelectResult:
     """Value of the m-th largest element (for kNN / trimming)."""
     m = torch.as_tensor(m, device=x.device).to(torch.int32)
     return order_statistic(x, x.numel() - m + 1, **kw)
+
+
+def multi_order_statistic(
+    x: torch.Tensor,
+    ks,
+    *,
+    method: Optional[str] = None,
+    maxit: int = 64,
+    cap: Optional[int] = None,
+    transform: Optional[str] = None,
+    nbins: Optional[int] = None,
+    prior=None,
+) -> SelectResult:
+    """Several order statistics of the SAME array at once (shared-x mode).
+
+    All K brackets iterate together against a :class:`SharedEvaluator`:
+    each sweep or cp pass reads ``x`` ONCE for every live target (kernels
+    K3 and K4 on the card), and the finalize compacts each target's
+    survivors straight from the ``(n,)`` array (:func:`_finalize_shared`),
+    so no ``(K, n)`` tensor exists.  Every field of the result is
+    (K,)-shaped, in the order of ``ks``.  Options as :func:`select_rows`,
+    with the batched cap policy.
+    """
+    if prior is not None:
+        raise NotImplementedError("prior= warm starts are not ported yet")
+    x = x.reshape(-1)
+    n = x.numel()
+    method = _resolve_method(method, n)
+    nbins = _resolve_nbins(nbins, x)
+    ks = torch.clamp(torch.as_tensor(ks, device=x.device).reshape(-1), 1,
+                     n).to(torch.int32)
+    nk = ks.shape[0]
+    if cap is None:
+        cap = _default_cap_rows(n)
+    cap = min(cap, n)
+
+    if method == "sort":
+        xs = torch.sort(x).values
+        return SelectResult(
+            value=xs[ks.to(torch.int64) - 1],
+            iters=torch.zeros((nk,), dtype=torch.int32, device=x.device),
+            status=torch.full((nk,), EXACT_HIT, dtype=torch.int32,
+                              device=x.device),
+            y_lo=xs[0].broadcast_to((nk,)), y_hi=xs[-1].broadcast_to((nk,)),
+            n_in=torch.full((nk,), n, dtype=torch.int32, device=x.device),
+        )
+
+    if transform == "log1p":
+        xt, _ = transforms.log1p_transform(x)
+        s, _, _ = _run_bracket_phase(SharedEvaluator(xt, ks), method, maxit,
+                                     cap, nbins)
+        s = _map_bracket_back_shared(x, xt, s)
+        return _finalize_shared(x, ks, s, cap,
+                                torch.amin(x).broadcast_to((nk,)),
+                                torch.amax(x).broadcast_to((nk,)))
+    if transform is not None:
+        raise ValueError(f"unknown transform {transform!r}")
+
+    ev = SharedEvaluator(x, ks)
+    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins)
+    return _finalize_shared(ev.x, ks, s, cap, xmin, xmax)
+
+
+def quantiles(x: torch.Tensor, qs, **kw) -> SelectResult:
+    """Lower empirical quantiles at each q in ``qs`` from ONE shared-x
+    solve: the K brackets narrow together from one data pass per round,
+    so a decile vector costs the data traffic of a single median, not ~K
+    times it."""
+    return multi_order_statistic(x, ranks_from_quantiles(qs, x.numel()), **kw)

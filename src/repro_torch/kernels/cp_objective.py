@@ -1,13 +1,19 @@
 """CUDA kernels of the selection engine's data passes, and their wrappers.
 
-Two hand-written kernels for Hopper (``sm_90a``), built from ``csrc/`` by
-:mod:`repro_torch.kernels._build` at first use:
+Four hand-written kernels for Hopper (``sm_90a``), built from ``csrc/`` by
+:mod:`repro_torch.kernels._build` at first use, each on its counting leg:
 
 * K1 ``csrc/hist_batched.cu`` behind :func:`cp_histogram_batched` — the
-  binned sweep (replaces the TPU body ``_hist_kernel_batched`` of
-  ``repro/kernels/cp_objective.py``), counting leg without per-slot sums;
+  row-wise binned sweep (replaces the TPU body ``_hist_kernel_batched`` of
+  ``repro/kernels/cp_objective.py``), without per-slot sums;
 * K2 ``csrc/fg_batched.cu`` behind :func:`cp_partials_batched` — the
-  cutting-plane pass (replaces ``_fg_kernel_batched``), counting leg.
+  row-wise cutting-plane pass (replaces ``_fg_kernel_batched``);
+* K3 ``csrc/hist_multi.cu`` behind :func:`cp_histogram_multi` and its K=1
+  view :func:`cp_histogram` — one shared array binned against K ladders in
+  one read (replaces ``_hist_kernel_multi``), without per-slot sums;
+* K4 ``csrc/fg_multi.cu`` behind :func:`cp_partials_multi` and its K=1
+  view :func:`cp_partials` — the partials of K pivots from one read of a
+  shared array (replaces ``_fg_kernel_multi``).
 
 Each wrapper checks what the kernel takes and raises on anything else,
 allocates the outputs, launches on the current stream, raises on a
@@ -24,7 +30,9 @@ from repro_torch.kernels import _build
 
 # launches per wrapper since the last reset_launches(); a wrapper adds one
 # exactly where it launches its kernel
-LAUNCHES = {"cp_histogram_batched": 0, "cp_partials_batched": 0}
+LAUNCHES = {"cp_histogram_batched": 0, "cp_partials_batched": 0,
+            "cp_histogram_multi": 0, "cp_partials_multi": 0,
+            "cp_histogram": 0, "cp_partials": 0}
 
 # K1: blocks resident per SM that the grid aims to fill (integer atomics make
 # the counts independent of the block count, so it may follow the card)
@@ -39,12 +47,22 @@ HIST_MAX_SMEM = 48 * 1024
 FG_CHUNK = 8192
 FG_MAX_BLOCKS = 1024
 MAX_ROWS = 65535  # grid.y limit
+# K3: a block holds a power of two of at most 16 ladders (two register
+# counters each per thread), only as many as fit in HIST_MAX_SMEM; a single
+# ladder past that opts in to at most HIST_OPTIN_SMEM, the most an H100
+# block may hold
+HIST_MULTI_GROUP = 16
+HIST_OPTIN_SMEM = 227 * 1024
+# K4: at most 16 pivots share a block (four register accumulators each)
+FG_MULTI_GROUP = 16
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "hist_batched": [_P, _P, _P, _I64, _I64, _I32, _I32, _P],
     "fg_batched": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
+    "hist_multi": [_P, _P, _P, _I64, _I32, _I32, _I32, _P],
+    "fg_multi": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
 }
 _fns: dict = {}
 
@@ -77,20 +95,24 @@ def _raise_on(rc: int, lib_name: str) -> None:
                            f"{rc} ({msg})")
 
 
-def _check_data(x: torch.Tensor) -> None:
+def _check_data(x: torch.Tensor, shared: bool = False) -> None:
+    """What K1/K2 (``(B, n)`` rows) or, with ``shared``, K3/K4 (one
+    ``(n,)`` array) take."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel input must be a CUDA tensor, got {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"kernel input must be float32 or bfloat16, got "
                         f"{x.dtype}")
-    if x.dim() != 2:
-        raise ValueError(f"kernel input must be (B, n), got {tuple(x.shape)}")
+    if x.dim() != (1 if shared else 2):
+        want = "(n,)" if shared else "(B, n)"
+        raise ValueError(f"kernel input must be {want}, got "
+                         f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("kernel input must be contiguous")
-    if x.shape[0] > MAX_ROWS:
+    if not shared and x.shape[0] > MAX_ROWS:
         raise ValueError(f"at most {MAX_ROWS} rows per launch, got "
                          f"{x.shape[0]}")
-    if x.shape[1] >= 2 ** 31:
+    if x.shape[-1] >= 2 ** 31:
         raise ValueError("int32 counts hold rows of fewer than 2^31 elements")
 
 
@@ -166,3 +188,107 @@ def cp_partials_batched(x: torch.Tensor, y: torch.Tensor):
     s = torch.sum(fsum, dim=1)
     c = torch.sum(cnt, dim=1, dtype=torch.int32)
     return s[:, 0], s[:, 1], c[:, 0], c[:, 1]
+
+
+def hist_multi_group(k: int, nedges: int) -> int:
+    """Ladders per block of K3: the smallest power of two that covers ``k``
+    up to ``HIST_MULTI_GROUP``, halved while the group's edges and
+    histograms overflow ``HIST_MAX_SMEM`` (at least one)."""
+    group = 1
+    while group < min(k, HIST_MULTI_GROUP):
+        group *= 2
+    while group > 1 and group * (2 * nedges + 1) * 4 > HIST_MAX_SMEM:
+        group //= 2
+    return group
+
+
+def _hist_multi(x: torch.Tensor, edges: torch.Tensor, key: str):
+    """Launch K3 on ``x`` (n,) and ``edges`` (K, nbins+1); counts one
+    launch under ``LAUNCHES[key]``."""
+    _check_data(x, shared=True)
+    if edges.dim() != 2 or edges.shape[1] < 1:
+        raise ValueError(f"edges must be (K, nbins + 1), got "
+                         f"{tuple(edges.shape)}")
+    k, nedges = edges.shape
+    _check_side(edges, x, (k, nedges), "edges")
+    smem = (2 * nedges + 1) * 4
+    if smem > HIST_OPTIN_SMEM:
+        raise ValueError(f"{nedges - 1} bins need {smem} bytes of shared "
+                         f"memory per ladder; a block holds at most "
+                         f"{HIST_OPTIN_SMEM}")
+    group = hist_multi_group(k, nedges)
+    if -(-k // group) > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS * group} ladders per launch, "
+                         f"got {k}")
+    cnt = torch.zeros((k, nedges + 1), dtype=torch.int32, device=x.device)
+    if k == 0:
+        return cnt
+    fn = _kernel_fn("hist_multi", x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), edges.data_ptr(), cnt.data_ptr(), x.shape[0],
+                k, nedges, group, stream)
+    _raise_on(rc, "hist_multi")
+    LAUNCHES[key] += 1
+    return cnt
+
+
+def cp_histogram_multi(x: torch.Tensor, edges: torch.Tensor):
+    """K3: slot counts of one shared ``x`` (n,) f32/bf16 against K realized
+    f32 ladders ``edges`` (K, nbins+1).  Returns ``(cnt, None)`` with
+    ``cnt`` int32 (K, nbins + 2), slot layout as
+    ``ref.searchsorted_slots``."""
+    return _hist_multi(x, edges, "cp_histogram_multi"), None
+
+
+def cp_histogram(x: torch.Tensor, edges: torch.Tensor):
+    """The K=1 view of :func:`cp_histogram_multi`: ``x`` (n,), one ladder
+    ``edges`` (nbins+1,); returns ``(cnt, None)``, ``cnt`` (nbins + 2,)."""
+    if edges.dim() != 1:
+        raise ValueError(f"edges must be (nbins + 1,), got "
+                         f"{tuple(edges.shape)}")
+    return _hist_multi(x, edges[None, :], "cp_histogram")[0], None
+
+
+def _partials_multi(x: torch.Tensor, y: torch.Tensor, key: str):
+    """Launch K4 on ``x`` (n,) and f32 pivots ``y`` (K,), then reduce the
+    per-block partials in a fixed order; counts one launch under
+    ``LAUNCHES[key]``."""
+    k = y.shape[0]
+    _check_side(y, x, (k,), "y")
+    if -(-k // FG_MULTI_GROUP) > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS * FG_MULTI_GROUP} pivots per "
+                         f"launch, got {k}")
+    nblk = fg_blocks(x.shape[0])
+    fsum = torch.empty((nblk, k, 2), dtype=torch.float32, device=x.device)
+    cnt = torch.empty((nblk, k, 2), dtype=torch.int32, device=x.device)
+    if k > 0:
+        fn = _kernel_fn("fg_multi", x.dtype)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = fn(x.data_ptr(), y.data_ptr(), fsum.data_ptr(),
+                    cnt.data_ptr(), x.shape[0], k, nblk, stream)
+        _raise_on(rc, "fg_multi")
+        LAUNCHES[key] += 1
+    s = torch.sum(fsum, dim=0)
+    c = torch.sum(cnt, dim=0, dtype=torch.int32)
+    return s[:, 0], s[:, 1], c[:, 0], c[:, 1]
+
+
+def cp_partials_multi(x: torch.Tensor, y: torch.Tensor):
+    """K4: ``(sum_pos, sum_neg, n_lt, n_le)`` of ``d = x - y_k`` for one
+    shared ``x`` (n,) f32/bf16 and pivots ``y`` (K,) (cast to f32, as the
+    kernel compares in f32).  Sums f32, counts int32, each (K,)."""
+    _check_data(x, shared=True)
+    y = y.to(torch.float32).contiguous()
+    if y.dim() != 1:
+        raise ValueError(f"y must be (K,), got {tuple(y.shape)}")
+    return _partials_multi(x, y, "cp_partials_multi")
+
+
+def cp_partials(x: torch.Tensor, y):
+    """The K=1 view of :func:`cp_partials_multi`: ``x`` (n,) and a scalar
+    pivot; returns four 0-dim tensors."""
+    _check_data(x, shared=True)
+    y = torch.as_tensor(y, dtype=torch.float32, device=x.device).reshape(1)
+    return tuple(p[0] for p in _partials_multi(x, y, "cp_partials"))

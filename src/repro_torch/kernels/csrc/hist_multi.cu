@@ -1,0 +1,258 @@
+// K3: one shared array binned against K realized edge ladders in one read.
+//
+// Replaces the TPU kernel src/repro/kernels/cp_objective.py
+// `_hist_kernel_multi` (tile math `_bin_tile`), on its counting leg without
+// per-slot sums: x (n,) f32 or bf16, edges (K, nbins+1) f32, out int32
+// counts (K, nbins+2).  Slot layout per ladder as K1 (`hist_batched.cu`):
+// slot 0 is x <= e_0 (with -inf), slot j is e_{j-1} < x <= e_j, slot
+// nbins+1 is x > e_nbins and NaN, exactly what the plain version
+// `kernels/ref.py:cp_histogram_multi_ref` computes ladder by ladder.
+//
+// Bound on an H100 SXM: one read of x (4 bytes per f32 element, 2 per
+// bf16): 512 MiB at n = 2^27 against 3.35 TB/s is 0.16 ms.  Per element and
+// distinct ladder the work is two compares, plus a binary search over the
+// shared-memory edges (8 steps at nbins = 128) for in-bracket elements.
+//
+// Design:
+// - a block holds G ladders (G in {1, 2, 4, 8, 16}, a template parameter:
+//   the smallest that covers K up to 16, halved while G ladders' edges and
+//   (nbins+2)-slot histograms overflow the 48 KB of shared memory a block
+//   gets without opting in; one ladder past that opts in).  K > G splits
+//   into groups along grid.y, and each group reads x again (x is read
+//   ceil(K / G) times: once for K <= 16 at nbins = 128);
+// - the meeting of an element and a ladder is branch-free: one compare
+//   adds to the ladder's slot-0 count in a register (compile-time index,
+//   G unrolled), a second sets the ladder's bit in the element's in-bracket
+//   mask.  Only the set bits take a binary search and a shared-memory
+//   atomic, after all ladders are compared.  The top slot (x > e_nbins and
+//   NaN) needs no count: it is what the block read less the other slots;
+// - a ladder that equals an earlier ladder of its group edge for edge (the
+//   first sweep gives every target the same bracket [min, max]) is binned
+//   once: its counts are copied from the first such ladder at the flush;
+// - each block strides over x with 64-bit offsets, four independent loads
+//   in flight per thread;
+// - the kernel only COMPARES against the realized edges; integer atomics
+//   flush each block's histograms into the zeroed output, so the counts do
+//   not depend on the order of blocks.
+// Built without fast-math, so denormals are compared exactly (no flush).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Compares the U values v with every binned ladder of the block (bit j of
+// `binned`; bracket (lo[j], hi[j])): slot-0 hits add to below[j], in-bracket
+// hits set bit j of inside[u].
+template <int G, int U>
+__device__ __forceinline__ void compare(const float (&v)[U], unsigned binned,
+                                        const float (&lo)[G],
+                                        const float (&hi)[G],
+                                        int (&below)[G],
+                                        unsigned (&inside)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) inside[u] = 0;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if (!((binned >> j) & 1u)) continue;  // uniform over the block
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool le_lo = v[u] <= lo[j];
+      below[j] += le_lo;
+      inside[u] |= (unsigned)(!le_lo && v[u] <= hi[j]) << j;
+    }
+  }
+}
+
+// Slots v into each ladder whose bit is set in `mask`: slot = count(e < v)
+// over ladder j at e + j * nedges, known to lie in [1, nedges - 1].
+__device__ __forceinline__ void slot_inside(float v, unsigned mask,
+                                            const float* e, int* hist,
+                                            int nedges) {
+  while (mask) {
+    const int j = __ffs(mask) - 1;
+    mask &= mask - 1;
+    const float* ej = e + j * nedges;
+    int s = 1, t = nedges - 1;  // invariant: ej[s-1] < v <= ej[t]
+    while (s < t) {
+      const int m = (s + t) >> 1;
+      if (ej[m] < v) s = m + 1; else t = m;
+    }
+    atomicAdd(&hist[j * (nedges + 1) + s], 1);
+  }
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+hist_multi_kernel(const T* __restrict__ x, const float* __restrict__ edges,
+                  int* __restrict__ cnt, long long n, int nladders,
+                  int nedges) {
+  extern __shared__ float smem[];
+  __shared__ int rep[G];  // ladder j is binned as ladder rep[j]
+  __shared__ int total;   // elements this block read
+  const int nslots = nedges + 1;
+  const int first = blockIdx.y * G;
+  const int nl = min(G, nladders - first);
+  float* e = smem;                                          // G * nedges
+  int* hist = reinterpret_cast<int*>(smem + G * nedges);    // G * nslots
+  for (int i = threadIdx.x; i < nl * nedges; i += blockDim.x)
+    e[i] = edges[(long long)first * nedges + i];
+  for (int i = threadIdx.x; i < nl * nslots; i += blockDim.x) hist[i] = 0;
+  if (threadIdx.x == 0) total = 0;
+  __syncthreads();
+  if (threadIdx.x < nl) {
+    const int j = threadIdx.x;
+    int r = j;
+    for (int p = 0; p < j && r == j; ++p) {
+      bool same = true;
+      for (int s = 0; s < nedges && same; ++s)
+        same = e[p * nedges + s] == e[j * nedges + s];
+      if (same) r = p;
+    }
+    rep[j] = r;
+  }
+  __syncthreads();
+  unsigned binned = 0;  // bit j: ladder j exists and is the first of its kind
+  float lo[G], hi[G];
+  int below[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const bool b = j < nl && rep[j] == j;
+    binned |= (unsigned)b << j;
+    lo[j] = b ? e[j * nedges] : 0.f;
+    hi[j] = b ? e[j * nedges + nedges - 1] : 0.f;
+    below[j] = 0;
+  }
+
+  int seen = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (; i + (kUnroll - 1) * stride < n; i += kUnroll * stride) {
+    float v[kUnroll];
+    unsigned inside[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = to_f32(x[i + u * stride]);
+    compare<G, kUnroll>(v, binned, lo, hi, below, inside);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      slot_inside(v[u], inside[u], e, hist, nedges);
+    seen += kUnroll;
+  }
+  for (; i < n; i += stride) {
+    const float v[1] = {to_f32(x[i])};
+    unsigned inside[1];
+    compare<G, 1>(v, binned, lo, hi, below, inside);
+    slot_inside(v[0], inside[0], e, hist, nedges);
+    ++seen;
+  }
+
+  const int lane = threadIdx.x & 31;
+  seen = warp_sum(seen);
+  if (lane == 0) atomicAdd(&total, seen);
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if (!((binned >> j) & 1u)) continue;
+    const int b = warp_sum(below[j]);
+    if (lane == 0 && b) atomicAdd(&hist[j * nslots], b);
+  }
+  __syncthreads();
+  if (threadIdx.x < nl && rep[threadIdx.x] == threadIdx.x) {
+    int* hj = hist + threadIdx.x * nslots;
+    int counted = 0;
+    for (int s = 0; s < nslots - 1; ++s) counted += hj[s];
+    hj[nslots - 1] = total - counted;  // x > e_nbins, or NaN
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < nl * nslots; k += blockDim.x) {
+    const int j = k / nslots;
+    const int s = k - j * nslots;
+    const int c = hist[rep[j] * nslots + s];
+    if (c) atomicAdd(&cnt[(long long)(first + j) * nslots + s], c);
+  }
+}
+
+template <typename T, int G>
+int launch_group(const void* x, const void* edges, void* cnt, long long n,
+                 int nladders, int nedges, void* stream) {
+  const size_t smem = (size_t)G * (2 * nedges + 1) * sizeof(float);
+  const auto kernel = hist_multi_kernel<T, G>;
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  // one resident wave over all groups; integer atomics make the counts
+  // independent of the block count, so it may follow the card
+  const int groups = (nladders + G - 1) / G;
+  const long long per_block = (long long)kThreads * kUnroll;
+  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1) / groups;
+  if (blocks > (n + per_block - 1) / per_block)
+    blocks = (n + per_block - 1) / per_block;
+  if (blocks < 1) blocks = 1;
+  const dim3 grid((unsigned)blocks, (unsigned)groups);
+  hist_multi_kernel<T, G><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(edges),
+      static_cast<int*>(cnt), n, nladders, nedges);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* x, const void* edges, void* cnt, long long n,
+           int nladders, int nedges, int group, void* stream) {
+  switch (group) {
+    case 1: return launch_group<T, 1>(x, edges, cnt, n, nladders, nedges,
+                                      stream);
+    case 2: return launch_group<T, 2>(x, edges, cnt, n, nladders, nedges,
+                                      stream);
+    case 4: return launch_group<T, 4>(x, edges, cnt, n, nladders, nedges,
+                                      stream);
+    case 8: return launch_group<T, 8>(x, edges, cnt, n, nladders, nedges,
+                                      stream);
+    case 16: return launch_group<T, 16>(x, edges, cnt, n, nladders, nedges,
+                                        stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// `cnt` must be zeroed by the caller (the blocks add into it).  `group`
+// (1, 2, 4, 8 or 16) ladders share a block.  Returns the first non-zero
+// CUDA error code of the set-up or the launch, else 0.
+extern "C" int hist_multi_f32(const void* x, const void* edges, void* cnt,
+                              long long n, int nladders, int nedges,
+                              int group, void* stream) {
+  return launch<float>(x, edges, cnt, n, nladders, nedges, group, stream);
+}
+
+extern "C" int hist_multi_bf16(const void* x, const void* edges, void* cnt,
+                               long long n, int nladders, int nedges,
+                               int group, void* stream) {
+  return launch<__nv_bfloat16>(x, edges, cnt, n, nladders, nedges, group,
+                               stream);
+}
+
+extern "C" const char* cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -38,3 +38,35 @@ def fused_histogram_batched(x: torch.Tensor, edges: torch.Tensor):
     if uses_kernel(x):
         return cp_objective.cp_histogram_batched(x, edges)
     return ref.cp_histogram_batched_ref(x, edges, want_sums=False)
+
+
+def fused_partials_multi(x: torch.Tensor, y: torch.Tensor):
+    """``(sum_pos, sum_neg, n_lt, n_le)`` of one shared ``x`` (n,) at each
+    of the pivots ``y`` (K,)."""
+    if uses_kernel(x):
+        return cp_objective.cp_partials_multi(x, y)
+    return ref.cp_partials_multi_ref(x, y)
+
+
+def fused_histogram_multi(x: torch.Tensor, edges: torch.Tensor):
+    """Shared-x binned pass, counting leg: ``x`` (n,) against K realized
+    ladders ``(K, nbins+1)`` -> ``(cnt, None)``, ``cnt`` int32
+    ``(K, nbins + 2)``."""
+    if uses_kernel(x):
+        return cp_objective.cp_histogram_multi(x, edges)
+    return ref.cp_histogram_multi_ref(x, edges, want_sums=False)
+
+
+def fused_partials(x: torch.Tensor, y):
+    """The K=1 view of :func:`fused_partials_multi`: a scalar pivot."""
+    if uses_kernel(x):
+        return cp_objective.cp_partials(x, y)
+    return ref.cp_partials_ref(x, y)
+
+
+def fused_histogram(x: torch.Tensor, edges: torch.Tensor):
+    """The K=1 view of :func:`fused_histogram_multi`: one ladder
+    ``(nbins+1,)`` -> ``(cnt, None)``, ``cnt`` ``(nbins + 2,)``."""
+    if uses_kernel(x):
+        return cp_objective.cp_histogram(x, edges)
+    return ref.cp_histogram_ref(x, edges, want_sums=False)

@@ -38,6 +38,17 @@ def cp_partials_batched_ref(x: torch.Tensor, y):
     return _partials(x.to(dt) - y, dim=-1)
 
 
+def cp_partials_multi_ref(x: torch.Tensor, y):
+    """Plain version of ``cp_partials_multi``: one shared ``x`` (n,) and
+    pivots ``y`` (K,); returns four (K,) tensors.  One pivot at a time, so
+    no ``(K, n)`` tensor exists."""
+    dt = _accum_dtype(x)
+    x = x.reshape(-1).to(dt)
+    y = torch.as_tensor(y, dtype=dt, device=x.device).reshape(-1)
+    parts = [_partials(x - yj, dim=-1) for yj in y]
+    return tuple(torch.stack(p) for p in zip(*parts))
+
+
 def _partials(d: torch.Tensor, dim: int):
     zero = torch.zeros((), dtype=d.dtype, device=d.device)
     sum_pos = torch.sum(torch.maximum(d, zero), dim=dim)
@@ -147,3 +158,14 @@ def cp_histogram_ref(x: torch.Tensor, edges: torch.Tensor, *,
                                          edges.reshape(1, -1),
                                          want_sums=want_sums)
     return cnt[0], (bsum[0] if bsum is not None else None)
+
+
+def cp_histogram_multi_ref(x: torch.Tensor, edges: torch.Tensor, *,
+                           want_sums: bool = True):
+    """Plain version of ``cp_histogram_multi``: one shared ``x`` (n,)
+    binned against K realized ladders ``edges`` (K, nbins+1).  Returns
+    ``(cnt, bsum)`` of shape ``(K, nbins + 2)``.  One ladder at a time
+    (:func:`cp_histogram_ref`), so no ``(K, n)`` tensor exists."""
+    cnt, bsum = zip(*(cp_histogram_ref(x, e, want_sums=want_sums)
+                      for e in edges))
+    return torch.stack(cnt), (torch.stack(bsum) if want_sums else None)

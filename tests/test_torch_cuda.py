@@ -86,3 +86,80 @@ def test_main_path_launches_kernels(cuda):
     res = selection.order_statistic(x[:5000], 77)
     assert cp_objective.LAUNCHES["cp_partials_batched"] == int(res.iters)
     assert float(res.value) == float(torch.sort(x[:5000]).values[76])
+
+
+def _ladders(k, device, nbins=128):
+    """K ladders cycling through full-range, data-scale, one-ulp,
+    denormal and narrow brackets, with every fourth ladder a repeat of the
+    data-scale one (identical ladders, as in a first sweep)."""
+    kinds = [(-3e38, 3e38), (-2.0, 2.0),
+             (0.25, float(np.nextafter(np.float32(0.25), np.float32(1)))),
+             (-1e-40, 1e-40), (-1e-3, 2e-3)]
+    pick = [kinds[1] if j % 4 == 3 else kinds[j % len(kinds)]
+            for j in range(k)]
+    lo = torch.tensor([p[0] for p in pick], device=device)
+    hi = torch.tensor([p[1] for p in pick], device=device)
+    return ref.bin_edges(lo, hi, nbins).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,nbins", [(1, 128), (16, 128), (64, 128),
+                                     (3, 8192)])
+def test_multi_histogram_kernel_equals_plain(cuda, dtype, k, nbins):
+    """K = 64 runs four groups of 16 ladders; 8192 bins need more than the
+    48 KB of shared memory a block gets without opting in."""
+    x = _data(1, 100_003, k, cuda)[0].to(dtype)
+    edges = _ladders(k, cuda, nbins)
+    got, _ = cp_objective.cp_histogram_multi(x, edges)
+    want, _ = ref.cp_histogram_multi_ref(x, edges, want_sums=False)
+    assert torch.equal(got, want)
+    one, _ = cp_objective.cp_histogram(x, edges[-1])
+    assert torch.equal(one, want[-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 16, 64])
+def test_multi_partials_kernel_equals_plain(cuda, dtype, k):
+    x = _data(1, 100_003, k + 1, cuda)[0].to(dtype)
+    pivots = torch.tensor([0.0, 1e-3, -0.5, 1e-44, 3e38, 1.5, -2.0],
+                          device=cuda)
+    y = pivots[torch.arange(k, device=cuda) % pivots.numel()]
+    y[-1] = x[12345].float()  # a pivot on a data value
+    got = cp_objective.cp_partials_multi(x, y)
+    want = ref.cp_partials_multi_ref(x, y)
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=0, equal_nan=True)
+    # K = 1: the scalar view, and K2's partials bit for bit
+    one = cp_objective.cp_partials(x, y[-1])
+    rows = cp_objective.cp_partials_batched(x[None, :], y[-1:])
+    for a, b in zip(one, rows):
+        assert torch.equal(a, b[0]) or (a.isnan() and b[0].isnan())
+
+
+def test_quantiles_launch_one_sweep_for_all_targets(cuda):
+    x = torch.randn(1 << 18, device=cuda)
+    qs = np.arange(1, 17) / 17
+    cp_objective.reset_launches()
+    res = selection.quantiles(x, qs)
+    assert cp_objective.LAUNCHES["cp_histogram_multi"] == int(res.iters.max())
+    assert cp_objective.LAUNCHES["cp_histogram_batched"] == 0
+    ks = selection.ranks_from_quantiles(qs, x.numel()).to(cuda).long()
+    assert torch.equal(res.value, torch.sort(x).values[ks - 1])
+    cp_objective.reset_launches()
+    res = selection.quantiles(x[:5000], qs)  # the cp leg
+    assert cp_objective.LAUNCHES["cp_partials_multi"] == int(res.iters.max())
+    ks = selection.ranks_from_quantiles(qs, 5000).to(cuda).long()
+    assert torch.equal(res.value, torch.sort(x[:5000]).values[ks - 1])
+
+
+@pytest.mark.parametrize("method", ["binned", "cp"])
+def test_strided_view_reaches_the_multi_kernels(cuda, method):
+    x = torch.randn(1 << 18, device=cuda)
+    kernel = {"binned": "cp_histogram_multi", "cp": "cp_partials_multi"}
+    ks = torch.tensor([1, 777, 1 << 16, 1 << 17], device=cuda)
+    cp_objective.reset_launches()
+    res = selection.multi_order_statistic(x[::2], ks, method=method)
+    assert cp_objective.LAUNCHES[kernel[method]] > 0
+    assert torch.equal(res.value, torch.sort(x[::2]).values[ks - 1])

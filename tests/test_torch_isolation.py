@@ -52,6 +52,7 @@ from repro_torch.convert import from_numpy
 from repro_torch.core import selection
 x = from_numpy(np.arange(9, dtype=np.float32)[::-1].copy(), device="cpu")
 assert float(selection.median(x).value) == 4.0
+assert selection.quantiles(x, [0.5, 1.0]).value.tolist() == [4.0, 8.0]
 loaded = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not loaded, loaded
 print("ok")
