@@ -39,10 +39,35 @@ Phases (any failure raises and the script exits non-zero):
    and the 16 quantiles end to end with ``torch.kthvalue`` / ``torch.sort``
    (plus a gather) as yardsticks that the port never calls, and the 16
    quantiles also against 16 separate ``order_statistic`` calls; a
-   breakdown of the 2^27 median and of the 16 quantiles.
+   breakdown of the 2^27 median and of the 16 quantiles;
+8. the weighted legs K1w-K4w against their plain versions on the card, at
+   the K1-K4 shapes above (8192 bins and K = 64 included), x and w each
+   f32 and bf16, with the SPECIALS in the data: counts and masses bit for
+   bit with integer weights whose totals stay below 2^24 (zero weights
+   and whole zero-mass slots included); with dense random weights the
+   masses within ``f32_chain`` * 2^-24 of the f64 plain version (the
+   longest chain of f32 additions in the kernel); each weighted kernel
+   launched twice on the same dense input gives identical bits;
+9. the weighted paths at full size through their public entry points, the
+   launch counts of each run read from zero and only the weighted kernels
+   allowed to launch: ``weighted_median`` of n = 2^27 f32 with 0/1 weights
+   at density 1/16 (K1w; every mass exact, so the value equals a
+   ``torch.sort`` + f64 cumulative-mass oracle bit for bit), the same with
+   dense weights (checked by a mass interval of stated width), a bf16-x
+   median, ``weighted_select_rows`` on (64, 2^20) with integer weights,
+   ``weighted_quantiles`` at 16 levels (K3w, one launch per sweep),
+   ``weighted_order_statistic(method='cp')`` at 2^27 and auto at n =
+   50,000 (K2w), ``weighted_multi_order_statistic(method='cp')`` at 16
+   targets (K4w);
+10. weighted timings: each weighted kernel, its plain version and its
+   bound; the weighted median, rows batch and 16 quantiles end to end with
+   a breakdown, against ``torch.sort`` + a gather of the weights +
+   ``torch.cumsum`` + ``torch.searchsorted`` (the yardstick; the port
+   never calls it).
 
-The line before the last two is ``{"kernels": [...]}``; then the
-``nvidia-smi`` name and power limit; the last line is
+The line before the last two is ``{"kernels": [...]}`` (all eight
+kernels: K1-K4 and their weighted legs K1w-K4w); then the ``nvidia-smi``
+name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -414,6 +439,542 @@ def multi_k_path(sel, cpo) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the weighted legs K1w-K4w and the weighted paths
+# ---------------------------------------------------------------------------
+
+# (x dtype, w dtype) pairs the weighted kernels take
+WDTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+           (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16))
+# integer weights are exact in every f32 partial while the total stays
+# below 2^24
+EXACT_TOTAL = 1 << 24
+
+
+def f32_chain(cpo, n: int) -> int:
+    """The longest chain of f32 additions any weight goes through in a
+    weighted kernel at length n: its thread's serial sum (one element per
+    thread and grid stride), a slot group of at most 32 lanes, a warp
+    shuffle (5), the warps of a block (8), and the fixed-order sum over the
+    fg_blocks(n) block partials.  For non-negative terms a sum through
+    such a chain is within chain * 2^-24 of the exact sum, relative."""
+    nblk = cpo.fg_blocks(n)
+    per_thread = -(-n // (nblk * 256))
+    return per_thread + 32 + 5 + 8 + nblk
+
+
+def int_weights(shape, seed: int) -> torch.Tensor:
+    """Integers 0..7, sparse enough that a row's total stays below 2^23,
+    and zero over x in (0.5, 0.75] of ``special_data`` (the caller zeroes
+    them), so that whole slots of a data-scale ladder carry no mass."""
+    g = gen(seed)
+    n = shape[-1]
+    keep = min(1.0, (1 << 23) / (3.5 * n))
+    w = torch.randint(0, 8, shape, generator=g, device=DEVICE).float()
+    return w * (torch.rand(shape, generator=g, device=DEVICE) < keep)
+
+
+def dense_weights(shape, seed: int) -> torch.Tensor:
+    """Dense random f32 weights in [0.5, 1.5), as in an IRLS step."""
+    return torch.rand(shape, generator=gen(seed), device=DEVICE) + 0.5
+
+
+def weighted_inputs(rows, n, seed):
+    """Data with the SPECIALS and two weight sets: integer weights (zero on
+    (0.5, 0.75], so whole slots carry no mass) and dense random weights."""
+    x = special_data(rows, n, seed)
+    wi = int_weights((rows, n), seed + 1)
+    wi[(x > 0.5) & (x <= 0.75)] = 0.0
+    assert float(wi.sum(dim=1).max()) < EXACT_TOTAL
+    return x, wi, dense_weights((rows, n), seed + 2)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+class WeightedCheck:
+    """Tallies of one weighted kernel's checks: the largest count or mass
+    difference with integer weights (it raises unless that is 0), the
+    largest relative mass error with dense weights against the f64 plain
+    version and its allowed bound, and the largest relative objective-sum
+    error against the f32 plain version."""
+
+    def __init__(self, name):
+        self.name = name
+        self.int_err = 0.0
+        self.dense_rel = 0.0
+        self.dense_bound = 0.0
+        self.sum_rel = 0.0
+
+    def exact(self, got, want, label):
+        for g, v in zip(got, want):
+            self.int_err = max(self.int_err,
+                               float((g.double() - v.double()).abs().max()))
+            if not torch.equal(g, v):
+                raise AssertionError(f"{self.name} differs from its plain "
+                                     f"version with integer weights: "
+                                     f"{label}")
+
+    def dense(self, got, exact, rtol, label):
+        """``exact``: the f64 plain version (non-negative terms)."""
+        err = (got.double() - exact).abs()
+        scale = exact.abs()
+        bad = err > rtol * scale
+        if bool(bad.any()):
+            raise AssertionError(f"{self.name} masses outside rtol {rtol:.3g} "
+                                 f"of the f64 sums: {label}")
+        nz = scale > 0
+        if bool(nz.any()):
+            self.dense_rel = max(self.dense_rel,
+                                 float((err[nz] / scale[nz]).max()))
+        self.dense_bound = max(self.dense_bound, rtol)
+
+    def sums(self, got, want):
+        for g, v in zip(got, want):
+            torch.testing.assert_close(g, v, rtol=SUM_RTOL, atol=0,
+                                       equal_nan=True)
+            fin = torch.isfinite(v) & (v != 0)
+            if bool(fin.any()):
+                self.sum_rel = max(self.sum_rel, float(
+                    ((g - v).abs()[fin] / v.abs()[fin]).max()))
+
+    def repeat(self, call, label):
+        a, b = call(), call()
+        if not all(same_bits(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{self.name}: two launches on the same "
+                                 f"input differ: {label}")
+
+    def result(self):
+        return {"max_abs_err": self.int_err,
+                "dense_max_rel_err": self.dense_rel,
+                "dense_rtol": self.dense_bound,
+                "max_rel_err_objective_sums": self.sum_rel}
+
+
+def check_k1w(cpo, ref) -> dict:
+    kinds = bracket_kinds()
+    chk = WeightedCheck("K1w")
+    for rows, n, seed in K1_SHAPES:
+        x32, wi32, wd32 = weighted_inputs(rows, n, seed + 40)
+        ladders = ([[kinds[i % len(kinds)] for i in range(rows)]]
+                   if rows > 1 else [[kind] for kind in kinds])
+        for xdt, wdt in WDTYPES:
+            x, wi = x32.to(xdt), wi32.to(wdt)
+            for ladder in ladders:
+                e = edge_ladders(ref, ladder, 128)
+                got = cpo.wcp_histogram_batched(x, wi, e)[:2]
+                want = ref.wcp_histogram_batched_ref(x, wi, e,
+                                                     want_sums=False)[:2]
+                chk.exact(got, want, f"({rows}, {n}) {xdt} {wdt} {ladder[:3]}")
+        x, wd = x32, wd32  # dense f32 weights: f64 sums, two launches
+        rtol = f32_chain(cpo, n) * 2.0 ** -24
+        for ladder in ladders:
+            e = edge_ladders(ref, ladder, 128)
+            got = cpo.wcp_histogram_batched(x, wd, e)[1]
+            exact = ref.wcp_histogram_batched_ref(x, wd.double(), e,
+                                                  want_sums=False)[1]
+            chk.dense(got, exact, rtol, f"({rows}, {n}) {ladder[:3]}")
+            chk.repeat(lambda: cpo.wcp_histogram_batched(x, wd, e)[:2],
+                       f"({rows}, {n})")
+        del x32, wi32, wd32, x, wi, wd
+    log(f"K1w hist_batched weighted == plain version: counts and masses bit "
+        f"for bit with integer weights (zero-mass slots included), dense "
+        f"weights within {chk.dense_bound:.3g} of f64 (worst "
+        f"{chk.dense_rel:.3g}), two launches identical, (rows, n) "
+        f"{[s[:2] for s in K1_SHAPES]}, x and w each f32 and bf16")
+    return chk.result()
+
+
+def check_k2w(cpo, ref) -> dict:
+    chk = WeightedCheck("K2w")
+    pivots = torch.tensor([0.0, 1e-3, -0.5, 1e-44, 3e38, 1.5], device=DEVICE)
+    for rows, n, seed in K2_SHAPES:
+        x32, wi32, wd32 = weighted_inputs(rows, n, seed + 50)
+        y = pivots[torch.arange(rows, device=DEVICE) % pivots.numel()]
+        y[-1] = x32[-1, 12345]  # a pivot on a data value
+        for xdt, wdt in WDTYPES:
+            x, wi = x32.to(xdt), wi32.to(wdt)
+            got = cpo.wcp_partials_batched(x, wi, y)
+            want = ref.wcp_partials_batched_ref(x, wi, y)
+            chk.exact(got[2:], want[2:], f"({rows}, {n}) {xdt} {wdt}")
+            chk.sums(got[:2], want[:2])
+        rtol = f32_chain(cpo, n) * 2.0 ** -24
+        got = cpo.wcp_partials_batched(x32, wd32, y)
+        exact = ref.wcp_partials_batched_ref(x32, wd32.double(), y)
+        for g, v in zip(got[2:4], exact[2:4]):
+            chk.dense(g, v, rtol, f"({rows}, {n})")
+        chk.sums(got[:2], ref.wcp_partials_batched_ref(x32, wd32, y)[:2])
+        chk.repeat(lambda: cpo.wcp_partials_batched(x32, wd32, y),
+                   f"({rows}, {n})")
+        del x32, wi32, wd32, x, wi
+    log(f"K2w fg_batched weighted == plain version: counts and masses bit for "
+        f"bit with integer weights, dense masses within "
+        f"{chk.dense_bound:.3g} of f64 (worst {chk.dense_rel:.3g}), objective "
+        f"sums within rtol {SUM_RTOL} (worst {chk.sum_rel:.3g}), two launches "
+        f"identical, (rows, n) {[s[:2] for s in K2_SHAPES]}, x and w each "
+        f"f32 and bf16")
+    return chk.result()
+
+
+def check_k3w(cpo, ref) -> dict:
+    kinds = bracket_kinds()
+    chk = WeightedCheck("K3w")
+    cases = ((N_BIG, 61, [("16 identical", [kinds[1]] * 16, 128),
+                          ("5 kinds cycled over 16",
+                           [kinds[j % 5] for j in range(16)], 128)]),
+             (N_ODD, 62, [("K=64", [kinds[j % 5] for j in range(64)], 128),
+                          ("K=3 at 8192 bins", [kinds[j] for j in range(3)],
+                           8192)]))
+    for n, seed, ladders in cases:
+        x32, wi32, wd32 = (t[0] for t in weighted_inputs(1, n, seed))
+        for xdt, wdt in WDTYPES:
+            x, wi = x32.to(xdt), wi32.to(wdt)
+            for label, ladder, nbins in ladders:
+                e = edge_ladders(ref, ladder, nbins)
+                got = cpo.wcp_histogram_multi(x, wi, e)[:2]
+                want = ref.wcp_histogram_multi_ref(x, wi, e,
+                                                   want_sums=False)[:2]
+                chk.exact(got, want, f"n={n} {xdt} {wdt} {label}")
+            if n == N_ODD:
+                for kind in kinds:  # K = 1 through the scalar view
+                    e1 = edge_ladders(ref, [kind], 128)[0]
+                    chk.exact(cpo.wcp_histogram(x, wi, e1)[:2],
+                              ref.wcp_histogram_ref(x, wi, e1,
+                                                    want_sums=False)[:2],
+                              f"n={n} {xdt} {wdt} K=1 {kind}")
+        rtol = f32_chain(cpo, n) * 2.0 ** -24
+        for label, ladder, nbins in ladders:
+            e = edge_ladders(ref, ladder, nbins)
+            got = cpo.wcp_histogram_multi(x32, wd32, e)[1]
+            exact = ref.wcp_histogram_multi_ref(x32, wd32.double(), e,
+                                                want_sums=False)[1]
+            chk.dense(got, exact, rtol, f"n={n} {label}")
+            chk.repeat(lambda: cpo.wcp_histogram_multi(x32, wd32, e)[:2],
+                       f"n={n} {label}")
+        del x32, wi32, wd32, x, wi
+    log(f"K3w hist_multi weighted == plain version: counts and masses bit for "
+        f"bit with integer weights at n=2^27 K=16 (identical and cycled "
+        f"ladders), n={N_ODD} K=64, K=3 at 8192 bins and K=1 "
+        f"(wcp_histogram), dense masses within {chk.dense_bound:.3g} of f64 "
+        f"(worst {chk.dense_rel:.3g}), two launches identical, x and w each "
+        f"f32 and bf16")
+    return chk.result()
+
+
+def check_k4w(cpo, ref) -> dict:
+    chk = WeightedCheck("K4w")
+    pivots = torch.tensor([0.0, 1e-3, -0.5, 1e-44, 3e38, 1.5, -2.0, 0.7],
+                          device=DEVICE)
+    for n, k, seed in ((N_BIG, 16, 71), (N_SMALL, 16, 72), (N_ODD, 64, 73)):
+        x32, wi32, wd32 = (t[0] for t in weighted_inputs(1, n, seed))
+        y = pivots[torch.arange(k, device=DEVICE) % pivots.numel()]
+        y[-1] = x32[12345]  # a pivot on a data value
+        for xdt, wdt in WDTYPES:
+            x, wi = x32.to(xdt), wi32.to(wdt)
+            label = f"n={n} K={k} {xdt} {wdt}"
+            got = cpo.wcp_partials_multi(x, wi, y)
+            want = ref.wcp_partials_multi_ref(x, wi, y)
+            chk.exact(got[2:], want[2:], label)
+            chk.sums(got[:2], want[:2])
+            one = cpo.wcp_partials(x, wi, y[-1])
+            chk.exact([g[None] for g in one[2:]],
+                      [v[-1:] for v in want[2:]], label + " K=1")
+        rtol = f32_chain(cpo, n) * 2.0 ** -24
+        got = cpo.wcp_partials_multi(x32, wd32, y)
+        exact = ref.wcp_partials_multi_ref(x32, wd32.double(), y)
+        for g, v in zip(got[2:4], exact[2:4]):
+            chk.dense(g, v, rtol, f"n={n} K={k}")
+        chk.sums(got[:2], ref.wcp_partials_multi_ref(x32, wd32, y)[:2])
+        chk.repeat(lambda: cpo.wcp_partials_multi(x32, wd32, y),
+                   f"n={n} K={k}")
+        del x32, wi32, wd32, x, wi
+    log(f"K4w fg_multi weighted == plain version: counts and masses bit for "
+        f"bit with integer weights, dense masses within "
+        f"{chk.dense_bound:.3g} of f64 (worst {chk.dense_rel:.3g}), objective "
+        f"sums within rtol {SUM_RTOL} (worst {chk.sum_rel:.3g}), two launches "
+        f"identical, (n, K) (2^27, 16), ({N_SMALL}, 16), ({N_ODD}, 64) and "
+        f"K=1 (wcp_partials), x and w each f32 and bf16")
+    return chk.result()
+
+
+def sorted_mass(x: torch.Tensor, w: torch.Tensor):
+    """The library way to weighted order statistics: ``torch.sort``, a
+    gather of the weights and an f64 ``torch.cumsum`` (the oracle of the
+    weighted paths; the port never calls it)."""
+    xs, order = torch.sort(x)
+    return xs, torch.cumsum(torch.gather(w, -1, order).double(), dim=-1)
+
+
+def mass_oracle(xs, cum, wk):
+    """Smallest sorted value whose cumulative mass reaches each ``wk``
+    (``torch.searchsorted`` on the f64 prefix masses)."""
+    wk = torch.as_tensor(wk, device=DEVICE).double().reshape(-1)
+    idx = torch.searchsorted(cum, wk.reshape(cum.shape[:-1] + (-1,))
+                             ).clamp(max=cum.shape[-1] - 1)
+    return torch.gather(xs, -1, idx).reshape(-1)
+
+
+def drive_weighted(sel, cpo, label, fn, check, expect_kernel):
+    """Run one weighted-path call with the launch counts read from zero;
+    ``check(res)`` raises unless the values are right.  Only weighted
+    kernels may launch, ``expect_kernel`` once per sweep or pass."""
+    cpo.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cpo.LAUNCHES)
+    check(res)
+    if bool((res.status == sel.NOT_CONVERGED).any()):
+        raise AssertionError(f"{label}: NOT_CONVERGED")
+    moved = {k for k, v in launches.items() if v}
+    if moved != {expect_kernel}:
+        raise AssertionError(f"{label}: launched {moved}, expected only "
+                             f"{expect_kernel}")
+    if launches[expect_kernel] != int(res.iters.max()):
+        raise AssertionError(f"{label}: {launches[expect_kernel]} launches "
+                             f"for {int(res.iters.max())} sweeps or passes")
+    log(f"{label}: iters {sorted(set(res.iters.reshape(-1).tolist()))[:8]} "
+        f"status {sorted(set(res.status.reshape(-1).tolist()))} launches "
+        f"{ {k: launches[k] for k in moved} } first call "
+        f"{wall * 1e3:.1f} ms")
+    return launches
+
+
+def weighted_path(sel, cpo) -> dict:
+    """The weighted entry points at full size; each value checked against
+    the sort + f64 cumulative-mass oracle."""
+    total = dict.fromkeys(cpo.LAUNCHES, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    def equal_to(want):
+        def check(res):
+            if not torch.equal(res.value.float().reshape(-1),
+                               want.float().reshape(-1)):
+                raise AssertionError("value differs from the sort + f64 "
+                                     "cumulative-mass oracle")
+        return check
+
+    x = torch.randn(N_BIG, generator=gen(81), device=DEVICE)
+    # 0/1 weights at density 1/16: total ~8.4e6 < 2^24, every mass exact
+    w01 = (torch.rand(N_BIG, generator=gen(82), device=DEVICE)
+           < 1 / 16).float()
+    W01 = float(w01.sum())
+    assert W01 < EXACT_TOTAL
+    xs, cum = sorted_mass(x, w01)
+    add(drive_weighted(sel, cpo, "weighted_median n=2^27 f32, 0/1 weights "
+                       "(binned)", lambda: sel.weighted_median(x, w01),
+                       equal_to(mass_oracle(xs, cum, 0.5 * W01)),
+                       "wcp_histogram_batched"))
+    wk_cp = float(torch.tensor(W01 / 3, dtype=torch.float32))
+    add(drive_weighted(sel, cpo, "weighted_order_statistic n=2^27 "
+                       "method=cp, 0/1 weights",
+                       lambda: sel.weighted_order_statistic(
+                           x, w01, wk_cp, method="cp"),
+                       equal_to(mass_oracle(xs, cum, wk_cp)),
+                       "wcp_partials_batched"))
+    # 16 weighted quantiles: target masses q * W rounded once to f32
+    wks16 = torch.tensor(QS16 * W01, dtype=torch.float32)
+    want16 = mass_oracle(xs, cum, wks16)
+    add(drive_weighted(sel, cpo, "weighted_quantiles K=16 n=2^27, 0/1 "
+                       "weights (binned)",
+                       lambda: sel.weighted_quantiles(x, w01, QS16),
+                       equal_to(want16), "wcp_histogram_multi"))
+    add(drive_weighted(sel, cpo, "weighted_multi_order_statistic K=16 "
+                       "n=2^27 method=cp",
+                       lambda: sel.weighted_multi_order_statistic(
+                           x, w01, wks16.to(DEVICE), method="cp"),
+                       equal_to(want16), "wcp_partials_multi"))
+    del xs, cum
+
+    xsmall, wsmall = x[:N_SMALL].contiguous(), w01[:N_SMALL].contiguous()
+    wsmall[0] = 1.0
+    xs, cum = sorted_mass(xsmall, wsmall)
+    wk_s = 0.5 * float(wsmall.sum())
+    add(drive_weighted(sel, cpo, f"weighted_median n={N_SMALL} auto (cp)",
+                       lambda: sel.weighted_median(xsmall, wsmall),
+                       equal_to(mass_oracle(xs, cum, wk_s)),
+                       "wcp_partials_batched"))
+
+    xb = x.to(torch.bfloat16)
+    xs, cum = sorted_mass(xb, w01)
+    add(drive_weighted(sel, cpo, "weighted_median n=2^27 bf16 x, 0/1 "
+                       "weights (binned)", lambda: sel.weighted_median(xb, w01),
+                       equal_to(mass_oracle(xs, cum, 0.5 * W01)),
+                       "wcp_histogram_batched"))
+    del xb, xs, cum
+
+    # dense weights, as in an IRLS step: no f32 sum of 2^27 masses is
+    # exact, so the check is a mass interval around wk = W/2 (in f64)
+    wd = dense_weights(N_BIG, 83)
+    xs, cum = sorted_mass(x, wd)
+    W = float(cum[-1])
+    wk = W / 2
+    # delta: the kernel's chain (f32_chain) bounds the error of each slot
+    # mass and prefix, and the engine's torch.sum reductions (W, the
+    # finalize's mass below the bracket and at vnext) are each taken as no
+    # longer: four such chains, relative 2^-24 each, of the total W
+    delta = 4 * f32_chain(cpo, N_BIG) * 2.0 ** -24 * W
+    margins = {}
+
+    def in_interval(res):
+        v = torch.tensor([float(res.value)], device=DEVICE)
+        m_lt = float(cum[int(torch.searchsorted(xs, v, side="left")) - 1]) \
+            if bool(xs[0] < v) else 0.0
+        m_le = float(cum[int(torch.searchsorted(xs, v, side="right")) - 1])
+        margins.update(m_lt_minus_wk=m_lt - wk, m_le_minus_wk=m_le - wk,
+                       delta=delta)
+        if not (m_lt < wk + delta and m_le >= wk - delta):
+            raise AssertionError(f"dense weighted median outside the mass "
+                                 f"interval: M(<v)-wk {m_lt - wk}, "
+                                 f"M(<=v)-wk {m_le - wk}, delta {delta}")
+
+    add(drive_weighted(sel, cpo, "weighted_median n=2^27 f32, dense weights "
+                       "(binned)", lambda: sel.weighted_median(x, wd),
+                       in_interval, "wcp_histogram_batched"))
+    log(f"  dense-weight median mass interval: {json.dumps(margins)}")
+    del xs, cum, wd, x, w01
+
+    xr = torch.randn((ROWS, N_ROW), generator=gen(84), device=DEVICE)
+    wr = torch.randint(0, 8, (ROWS, N_ROW), generator=gen(85),
+                       device=DEVICE).float()
+    Wr = wr.sum(dim=1)
+    assert float(Wr.max()) < EXACT_TOTAL
+    wks = (torch.rand(ROWS, generator=gen(86), device=DEVICE) * Wr).floor()
+    xs, cum = sorted_mass(xr, wr)
+    add(drive_weighted(sel, cpo, "weighted_select_rows (64, 2^20), integer "
+                       "weights, per-row target masses",
+                       lambda: sel.weighted_select_rows(xr, wr, wks),
+                       equal_to(mass_oracle(xs, cum, wks[:, None])),
+                       "wcp_histogram_batched"))
+    return total, margins
+
+
+def weighted_timings(sel, cpo, ref, obj) -> dict:
+    """K1w-K4w at the main path's shapes, their plain versions and bounds,
+    and the weighted paths end to end against the sort + cumsum
+    yardstick."""
+    out = {}
+    x = torch.randn(N_BIG, generator=gen(91), device=DEVICE)
+    wd = dense_weights(N_BIG, 92)
+    w01 = (torch.rand(N_BIG, generator=gen(93), device=DEVICE)
+           < 1 / 16).float()
+    x2, w2 = x[None, :], wd[None, :]
+    nblk = cpo.fg_blocks(N_BIG)
+    io = N_BIG * 8  # x and w, f32
+    # K1w at the first sweep's full-data bracket (every element inside)
+    e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].contiguous()
+    cnt, _, _ = cpo.wcp_histogram_batched(x2, w2, e1)
+    inside = int(N_BIG - cnt[0, 0] - cnt[0, -1])
+    steps = math.ceil(math.log2(e1.shape[1]))
+    e3 = ref.bin_edges(torch.tensor(-1e-3, device=DEVICE),
+                       torch.tensor(2e-3, device=DEVICE), 128)[None, :]
+    out["k1w"] = dict(
+        ms=cuda_ms(lambda: cpo.wcp_histogram_batched(x2, w2, e1), reps=20),
+        plain_ms=cuda_ms(lambda: ref.wcp_histogram_batched_ref(
+            x2, w2, e1, want_sums=False), reps=2, rounds=3),
+        # compares and a mass add per element, a search and an add inside
+        bound=bound(io + e1.numel() * 4 + 2 * cnt.numel() * 4,
+                    3 * N_BIG + inside * (steps + 1)),
+        narrow_ms=cuda_ms(lambda: cpo.wcp_histogram_batched(x2, w2, e3),
+                          reps=20))
+    y = torch.zeros(1, device=DEVICE)
+    out["k2w"] = dict(
+        ms=cuda_ms(lambda: cpo.wcp_partials_batched(x2, w2, y), reps=20),
+        plain_ms=cuda_ms(lambda: ref.wcp_partials_batched_ref(x2, w2, y),
+                         reps=2, rounds=3),
+        # per element: 1 subtract, 3 compares, 2 multiplies, 4 selects,
+        # 4 f32 adds and 2 count adds
+        bound=bound(io + 4 + nblk * 24, 16 * N_BIG))
+    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
+    e16 = e1.expand(16, -1).contiguous()
+    cnt16, _, _ = cpo.wcp_histogram_multi(x, wd, e16)
+    cum = torch.cumsum(cnt16[:, :-1], dim=-1, dtype=torch.int32)
+    yl, yr, *_ = sel.binned_descent_step(cum, e16, e16[:, 0], e16[:, -1], ks)
+    e2 = ref.bin_edges(yl, yr, 128).contiguous()
+    cnt2, _, _ = cpo.wcp_histogram_multi(x, wd, e2)
+    for label, e, c in (("k3w_first", e16, cnt16), ("k3w_narrow", e2, cnt2)):
+        nbytes, ops = k3_work(x, e, c)  # one read of x, compares, searches
+        distinct = len({r.numpy().tobytes() for r in e.cpu()})
+        out[label] = dict(
+            ms=cuda_ms(lambda: cpo.wcp_histogram_multi(x, wd, e), reps=20),
+            plain_ms=cuda_ms(lambda: ref.wcp_histogram_multi_ref(
+                x, wd, e, want_sums=False), reps=1, rounds=3),
+            # + the weights read once, the mass output, and two selected
+            # mass adds per element and distinct ladder
+            bound=bound(nbytes + N_BIG * 4 + c.numel() * 4,
+                        ops + 2 * N_BIG * distinct),
+            distinct_ladders=distinct)
+    y16 = torch.sort(x).values[ks.long() - 1]
+    out["k4w"] = dict(
+        ms=cuda_ms(lambda: cpo.wcp_partials_multi(x, wd, y16), reps=20),
+        plain_ms=cuda_ms(lambda: ref.wcp_partials_multi_ref(x, wd, y16),
+                         reps=1, rounds=3),
+        bound=bound(io + 16 * 4 + nblk * 16 * 24, 16 * 16 * N_BIG))
+
+    # end to end, against the library way: sort + gather + cumsum +
+    # searchsorted
+    def yardstick(xv, wv, wk):
+        xs, order = torch.sort(xv, dim=-1)
+        cumw = torch.cumsum(torch.gather(wv, -1, order), dim=-1)
+        idx = torch.searchsorted(cumw, wk).clamp(max=xv.shape[-1] - 1)
+        return torch.gather(xs, -1, idx)
+
+    W = wd.sum()
+    out["wmedian_dense_ms"] = cuda_ms(lambda: sel.weighted_median(x, wd),
+                                      reps=1, rounds=5)
+    out["wmedian_01_ms"] = cuda_ms(lambda: sel.weighted_median(x, w01),
+                                   reps=1, rounds=5)
+    out["wmedian_yardstick_ms"] = cuda_ms(
+        lambda: yardstick(x, wd, (0.5 * W).reshape(1)), reps=1, rounds=5)
+    xr = torch.randn((ROWS, N_ROW), generator=gen(94), device=DEVICE)
+    wr = torch.randint(0, 8, (ROWS, N_ROW), generator=gen(95),
+                       device=DEVICE).float()
+    wks = (torch.rand(ROWS, generator=gen(96), device=DEVICE)
+           * wr.sum(dim=1)).floor()
+    out["wrows_ms"] = cuda_ms(lambda: sel.weighted_select_rows(xr, wr, wks),
+                              reps=1, rounds=5)
+    out["wrows_yardstick_ms"] = cuda_ms(
+        lambda: yardstick(xr, wr, wks[:, None].contiguous()), reps=1,
+        rounds=5)
+    W01 = float(w01.sum())
+    wks16 = torch.tensor(QS16 * W01, dtype=torch.float32, device=DEVICE)
+    out["wquantiles_ms"] = cuda_ms(
+        lambda: sel.weighted_quantiles(x, w01, QS16), reps=1, rounds=3)
+    out["wquantiles_yardstick_ms"] = cuda_ms(
+        lambda: yardstick(x, w01, wks16), reps=1, rounds=5)
+
+    # where the time goes: the stats pass (with the total mass), the sweep
+    # loop (which includes the stats pass) and the finalize (compaction of
+    # (value, weight) pairs, argsort, mass probes)
+    for label, make, cap, fin in (
+            ("wmedian_dense",
+             lambda: obj.RowsEvaluator(x2, 0.5 * W, weights=w2),
+             sel._default_cap(N_BIG), sel._finalize_rows),
+            ("wrows", lambda: obj.RowsEvaluator(xr, wks, weights=wr),
+             sel._default_cap_rows(N_ROW), sel._finalize_rows),
+            ("wquantiles",
+             lambda: obj.SharedEvaluator(x, wks16, weights=w01),
+             sel._default_cap_rows(N_BIG), sel._finalize_shared)):
+        out[f"{label}_stats_ms"] = cuda_ms(lambda: make().init_stats(),
+                                           reps=1, rounds=5)
+        ev = make()
+        out[f"{label}_loop_ms"] = cuda_ms(lambda: sel.binned_loop_batched(
+            ev, nbins=128, cap=cap), reps=1, rounds=3)
+        s, xmin, xmax = sel.binned_loop_batched(ev, nbins=128, cap=cap)
+        out[f"{label}_finalize_ms"] = cuda_ms(lambda: fin(
+            ev.x, ev.k, s, cap, xmin, xmax, w=ev.w.to(ev.k.dtype)), reps=1,
+            rounds=3)
+        out[f"{label}_sweeps"] = int(s.iters.max())
+    return out
+
+
 def bound(nbytes, ops):
     """The least time for ``nbytes`` of traffic and ``ops`` f32 operations,
     and which of the two bounds it."""
@@ -594,27 +1155,38 @@ def main() -> None:
     k2_check = check_k2(cpo, ref)
     k3_check = check_k3(cpo, ref)
     k4_check = check_k4(cpo, ref)
+    w_checks = [check_k1w(cpo, ref), check_k2w(cpo, ref),
+                check_k3w(cpo, ref), check_k4w(cpo, ref)]
     log(f"kernel checks took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     launches = main_path(sel, cpo)
     multi = multi_k_path(sel, cpo)
+    weighted, margins = weighted_path(sel, cpo)
     log(f"main paths took {time.perf_counter() - t0:.1f} s; launches "
-        f"rows/scalar {launches}, multi-k {multi}")
+        f"rows/scalar {launches}, multi-k {multi}, weighted "
+        f"{ {k: v for k, v in weighted.items() if v} }")
     for key, count in (("cp_histogram_batched", launches),
                        ("cp_partials_batched", launches),
                        ("cp_histogram_multi", multi),
-                       ("cp_partials_multi", multi)):
+                       ("cp_partials_multi", multi),
+                       ("wcp_histogram_batched", weighted),
+                       ("wcp_partials_batched", weighted),
+                       ("wcp_histogram_multi", weighted),
+                       ("wcp_partials_multi", weighted)):
         if count[key] == 0:
             raise AssertionError(f"{key} never launched on its main path")
 
     t0 = time.perf_counter()
     tm = timings(sel, cpo, ref, obj)
     tmm = timings_multi(sel, cpo, ref, obj)
+    tw = weighted_timings(sel, cpo, ref, obj)
     log(f"timings took {time.perf_counter() - t0:.1f} s")
     log("timings (ms, " + name + ", " + smi + "): " + json.dumps(tm))
     log("multi-k timings (ms, " + name + ", " + smi + "): "
         + json.dumps(tmm))
+    log("weighted timings (ms, " + name + ", " + smi + "): "
+        + json.dumps(tw))
 
     kernels = [
         {"name": "hist_batched (K1)", "route": "cuda",
@@ -673,6 +1245,40 @@ def main() -> None:
          "nearest_library": "none: no PyTorch call returns the partials of "
                             "K pivots from one read of the array"},
     ]
+    weighted_rows = (
+        ("whist_batched (K1w)", "hist_batched.cu", 217,
+         "wcp_histogram_batched", "k1w",
+         "(1, 2^27) f32 x and dense f32 w, 128 bins, first-sweep edges",
+         "none: no call bins with weights against given edges"),
+        ("wfg_batched (K2w)", "fg_batched.cu", 179, "wcp_partials_batched",
+         "k2w", "(1, 2^27) f32 x and dense f32 w, one pivot",
+         "none: no call returns these six partials"),
+        ("whist_multi (K3w)", "hist_multi.cu", 197, "wcp_histogram_multi",
+         "k3w_first", "(2^27,) f32 x and dense f32 w, K=16 identical "
+         "first-sweep ladders, 128 bins",
+         "none: no call bins with weights against K given ladders"),
+        ("wfg_multi (K4w)", "fg_multi.cu", 155, "wcp_partials_multi", "k4w",
+         "(2^27,) f32 x and dense f32 w, K=16 pivots",
+         "none: no call returns the six partials of K pivots"))
+    for (kname, src, line, key, tkey, shape, lib), chk in zip(
+            weighted_rows, w_checks):
+        row = {"name": kname, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{src}",
+               "replaces": f"src/repro/kernels/cp_objective.py:{line}",
+               "launches": weighted[key], **chk,
+               "ms": tw[tkey]["ms"], "plain_ms": tw[tkey]["plain_ms"],
+               "bound_ms": tw[tkey]["bound"][0],
+               "bound_by": tw[tkey]["bound"][1], "library_ms": None,
+               "shape": shape, "nearest_library": lib}
+        if key == "wcp_histogram_batched":
+            row["narrow_bracket_ms"] = tw["k1w"]["narrow_ms"]
+        if key == "wcp_histogram_multi":
+            row.update(narrow_sweep_ms=tw["k3w_narrow"]["ms"],
+                       narrow_sweep_plain_ms=tw["k3w_narrow"]["plain_ms"],
+                       narrow_sweep_bound_ms=tw["k3w_narrow"]["bound"][0],
+                       narrow_sweep_distinct_ladders=tw["k3w_narrow"][
+                           "distinct_ladders"])
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

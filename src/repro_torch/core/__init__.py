@@ -13,4 +13,10 @@ from repro_torch.core.selection import (
     quantiles,
     select_rows,
     topk_threshold,
+    weighted_median,
+    weighted_multi_order_statistic,
+    weighted_order_statistic,
+    weighted_quantile,
+    weighted_quantiles,
+    weighted_select_rows,
 )

@@ -1,4 +1,4 @@
-"""Convex selection objective of Beliakov (2011), Eqs. (1)-(2) — counting leg.
+"""Convex selection objective of Beliakov (2011), Eqs. (1)-(2), both measures.
 
 The k-th smallest element of ``x`` (1-indexed) is the minimizer of the
 piecewise-linear convex function
@@ -20,10 +20,13 @@ counts both drive the optimizer and certify exactness.
 The selection engine in :mod:`repro_torch.core.selection` never touches the
 data directly; it talks to an :class:`Evaluator`, which answers one question
 per iteration — ``evaluator(y: (B,) pivots) -> FG`` with ``(B,)`` fields —
-plus the binned pass ``histogram(edges)``.  This module holds the counting
-measure only: every element has mass 1, so the measure fields ``m_lt`` /
-``m_le`` alias the int32 counts and every decision is an exact integer
-comparison.
+plus the binned pass ``histogram(edges)``.  On the counting leg every
+element has mass 1, so the measure fields ``m_lt`` / ``m_le`` alias the
+int32 counts and every decision is an exact integer comparison.  On the
+weighted leg (``weights=`` on either evaluator) element ``i`` has mass
+``w_i``: the target ``k`` is a cumulative mass, the measure fields carry
+f32 (or f64) masses and the slopes put the subdifferential's zero at mass
+``k`` (:func:`wfg_from_partials`).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import NamedTuple, Optional, Protocol
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import _waccum_dtype
 
 
 class FG(NamedTuple):
@@ -82,11 +86,43 @@ def fg_from_partials(partials, n, k) -> FG:
               n_lt=n_lt, n_le=n_le)
 
 
+def wfg_from_partials(partials, W, wk) -> FG:
+    """Combine the six weight-measure partials into :class:`FG`.
+
+    The slopes ``alpha = (W - wk)/W`` and ``beta = wk/W`` put the
+    subdifferential zero-crossing of ``F_w(y) = sum_i w_i * rho(x_i - y)``
+    exactly at mass ``wk``, and the normalized one-sided derivatives
+    collapse to ``g_lo = (W_lt - wk)/W`` and ``g_hi = (W_le - wk)/W``.
+    """
+    wsum_pos, wsum_neg, w_lt, w_le, n_lt, n_le = partials
+    dt = wsum_pos.dtype
+    Wf = torch.as_tensor(W).to(dt)
+    wkf = torch.as_tensor(wk).to(dt)
+    alpha = (Wf - wkf) / Wf
+    beta = wkf / Wf
+    f = (beta * wsum_pos + alpha * wsum_neg) / Wf
+    g_lo = (w_lt - wkf) / Wf
+    g_hi = (w_le - wkf) / Wf
+    return FG(f=f, g_lo=g_lo, g_hi=g_hi, m_lt=w_lt, m_le=w_le,
+              n_lt=n_lt, n_le=n_le)
+
+
+def _weight_accum_dtype(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
+    """Mass accumulation dtype: the kernels' f32 floor, full precision for
+    either-f64 operands.  The single source is the plain versions'
+    ``_waccum_dtype``: the engine's ``wk``/``W`` dtype must never differ
+    from the passes' accumulation dtype, or the weighted certificates
+    lie."""
+    return _waccum_dtype(x, w)
+
+
 class Evaluator(Protocol):
     """Batched pivot evaluation: pivots ``(B,)`` -> :class:`FG` with ``(B,)``
-    fields.  ``n`` is the per-problem element count, ``k`` the 1-indexed
-    int32 target ranks ``(B,)``, ``weighted`` which measure leg runs.
-    ``init_stats`` returns per-problem ``(min, max, mean)``.
+    fields.  ``n`` is the per-problem element count, ``k`` the target
+    measure ``(B,)`` — 1-indexed int32 ranks on the counting leg, float
+    cumulative masses on the weighted leg (``weighted`` says which; there
+    ``W`` is the total mass).  ``init_stats`` returns per-problem ``(min,
+    max, mean)``, the mean mass-weighted on the weighted leg.
 
     ``histogram`` bins each problem's data against the caller-supplied
     REALIZED edges ``(B, nbins + 1)`` — built once per sweep by the engine
@@ -94,8 +130,9 @@ class Evaluator(Protocol):
     them and accept any sorted, possibly duplicated edge array — and
     returns additive ``(cnt, mass, msum)`` slot vectors of shape
     ``(B, nbins + 2)``: int32 counts, the per-slot measure (``cnt`` itself
-    on the counting leg) and the per-slot sums (``None`` on the counting
-    leg, which needs none).
+    on the counting leg, the weight mass on the weighted leg) and the
+    per-slot sums (``None``: only the polish reads them, and it is not
+    ported).
     """
 
     n: int
@@ -116,31 +153,58 @@ class RowsEvaluator:
     """Independent rows: ``x`` is (B, n), one pivot and one ``k`` per row.
 
     The data passes are ``kernels.ops.fused_partials_batched`` and
-    ``kernels.ops.fused_histogram_batched``: the CUDA kernels for f32/bf16
-    tensors on the card, the plain versions on the CPU and for f64.  A
-    strided view is copied once to contiguous memory, as the kernels read
-    rows of ``n`` consecutive elements.
+    ``kernels.ops.fused_histogram_batched`` (their weighted twins with
+    ``weights``): the CUDA kernels for f32/bf16 tensors on the card, the
+    plain versions on the CPU and for f64.  A strided view is copied once
+    to contiguous memory, as the kernels read rows of ``n`` consecutive
+    elements.
+
+    The weights leg: with ``weights`` (broadcast to (B, n), on ``x``'s
+    device), ``k`` is the per-row TARGET CUMULATIVE MASS, in the mass
+    accumulation dtype and clipped to the row's total weight ``W``; the
+    partials carry weight masses in the measure fields and ``histogram``
+    returns ``(cnt, mass, None)``.
     """
 
-    weighted = False
-
-    def __init__(self, x: torch.Tensor, k):
+    def __init__(self, x: torch.Tensor, k, weights=None):
         self.x = x.contiguous()
         self.n = int(x.shape[1])
-        self.k = torch.clamp(
-            torch.as_tensor(k, device=x.device).to(torch.int32), 1, self.n
-        ).broadcast_to((x.shape[0],))
+        self.weighted = weights is not None
+        if self.weighted:
+            self.w = torch.as_tensor(weights, device=x.device).broadcast_to(
+                x.shape).contiguous()
+            dt = _weight_accum_dtype(x, self.w)
+            self.W = torch.sum(self.w, dim=1, dtype=dt)
+            self.k = torch.minimum(torch.as_tensor(k, dtype=dt,
+                                                   device=x.device), self.W
+                                   ).broadcast_to((x.shape[0],))
+        else:
+            self.k = torch.clamp(
+                torch.as_tensor(k, device=x.device).to(torch.int32), 1,
+                self.n).broadcast_to((x.shape[0],))
 
     def __call__(self, y: torch.Tensor) -> FG:
+        if self.weighted:
+            return wfg_from_partials(
+                ops.fused_weighted_partials_batched(self.x, self.w, y),
+                self.W, self.k)
         return fg_from_partials(ops.fused_partials_batched(self.x, y),
                                 self.n, self.k)
 
     def histogram(self, edges):
+        if self.weighted:
+            return ops.fused_weighted_histogram_batched(self.x, self.w, edges)
         cnt, bsum = ops.fused_histogram_batched(self.x, edges)
         return cnt, cnt, bsum  # counting measure: the counts ARE the mass
 
     def init_stats(self):
         x = self.x
+        if self.weighted:
+            # weighted mean: the analytic seed f-values are mass-weighted
+            wmean = torch.sum(self.w * x, dim=1, dtype=self.W.dtype) \
+                / torch.clamp(self.W, min=1e-30)
+            return (torch.amin(x, dim=1), torch.amax(x, dim=1),
+                    wmean.to(x.dtype))
         return (torch.amin(x, dim=1), torch.amax(x, dim=1),
                 torch.mean(x, dim=1))
 
@@ -149,31 +213,51 @@ class SharedEvaluator:
     """One shared array, K targets (``multi_order_statistic``).
 
     The data passes are ``kernels.ops.fused_partials_multi`` and
-    ``kernels.ops.fused_histogram_multi``: on the card each reads ``x``
-    once for all K pivots or ladders (kernels K4 and K3), on the CPU the
-    plain versions take one pivot or ladder at a time.  No ``(K, n)``
-    tensor exists.  A strided view is copied once to contiguous memory.
+    ``kernels.ops.fused_histogram_multi`` (their weighted twins with
+    ``weights``): on the card each reads ``x`` (and ``w``) once for all K
+    pivots or ladders (kernels K4 and K3), on the CPU the plain versions
+    take one pivot or ladder at a time.  No ``(K, n)`` tensor exists.  A
+    strided view is copied once to contiguous memory.  The weights leg as
+    :class:`RowsEvaluator`'s, with one total mass ``W``.
     """
 
-    weighted = False
-
-    def __init__(self, x: torch.Tensor, ks):
+    def __init__(self, x: torch.Tensor, ks, weights=None):
         self.x = x.reshape(-1).contiguous()
         self.n = int(self.x.numel())
-        self.k = torch.clamp(
-            torch.as_tensor(ks, device=x.device).reshape(-1), 1, self.n
-        ).to(torch.int32)
+        self.weighted = weights is not None
+        if self.weighted:
+            self.w = torch.as_tensor(weights, device=x.device).reshape(
+                -1).broadcast_to(self.x.shape).contiguous()
+            dt = _weight_accum_dtype(self.x, self.w)
+            self.W = torch.sum(self.w, dtype=dt)
+            self.k = torch.minimum(torch.as_tensor(
+                ks, dtype=dt, device=x.device).reshape(-1), self.W)
+        else:
+            self.k = torch.clamp(
+                torch.as_tensor(ks, device=x.device).reshape(-1), 1, self.n
+            ).to(torch.int32)
 
     def __call__(self, y: torch.Tensor) -> FG:
+        if self.weighted:
+            return wfg_from_partials(
+                ops.fused_weighted_partials_multi(self.x, self.w, y),
+                self.W, self.k)
         return fg_from_partials(ops.fused_partials_multi(self.x, y),
                                 self.n, self.k)
 
     def histogram(self, edges):
+        if self.weighted:
+            return ops.fused_weighted_histogram_multi(self.x, self.w, edges)
         cnt, bsum = ops.fused_histogram_multi(self.x, edges)
         return cnt, cnt, bsum  # counting measure: the counts ARE the mass
 
     def init_stats(self):
         x, shape = self.x, self.k.shape
+        if self.weighted:
+            wmean = torch.sum(self.w * x, dtype=self.W.dtype) \
+                / torch.clamp(self.W, min=1e-30)
+            mean = wmean.to(x.dtype)
+        else:
+            mean = torch.mean(x)
         return (torch.amin(x).broadcast_to(shape),
-                torch.amax(x).broadcast_to(shape),
-                torch.mean(x).broadcast_to(shape))
+                torch.amax(x).broadcast_to(shape), mean.broadcast_to(shape))

@@ -1,13 +1,18 @@
 """Selection (k-th order statistic) by convex minimization — Beliakov (2011).
 
-The PyTorch port of ``repro.core.selection``, counting leg.  The engine is
+The PyTorch port of ``repro.core.selection``.  The engine is
 batched-first: the bracket loops, the exact-hit certificates and the hybrid
 finalize operate on ``(B,)`` state tensors fed by an
 :class:`repro_torch.core.objective.Evaluator`; scalar selection is the
 ``B = 1`` view of :func:`select_rows`, and :func:`multi_order_statistic` /
 :func:`quantiles` run K targets of ONE array through the same loops on a
 :class:`~repro_torch.core.objective.SharedEvaluator` (kernels K3 and K4 on
-the card: one read of the array per sweep or pass for all K).
+the card: one read of the array per sweep or pass for all K).  The
+weighted entry points (:func:`weighted_select_rows`,
+:func:`weighted_order_statistic`, :func:`weighted_median`,
+:func:`weighted_quantile`, :func:`weighted_multi_order_statistic`,
+:func:`weighted_quantiles`) run the same loops and finalize on an
+evaluator whose measure is the weight mass (kernels K1w-K4w on the card).
 
 Methods (shared skeleton, they differ only in the next-pivot proposal):
 
@@ -23,12 +28,18 @@ Methods (shared skeleton, they differ only in the next-pivot proposal):
   pass;
 * ``sort``      — a full sort (the paper's "GPU radix sort" baseline).
 
-Exactness: the loops carry the integer counts per row, which yields the
-exact-hit certificate ``n_lt < k <= n_le  =>  pivot == x_(k)``, the count
-stopping rule ``count(y_L < x <= y_R) <= cap`` that sizes the static
-``(B, cap)`` compaction, and the tie fallback (next distinct value above
-``y_L`` verified by one counting pass).  Invariant per row:
-``count(x <= y_L) < k <= count(x <= y_R)``.
+Exactness: the loops carry the measure per row (integer counts, or
+weight masses on the weighted leg), which yields the exact-hit certificate
+``m_lt < k <= m_le  =>  pivot == x_(k)`` and the tie fallback (next
+distinct value above ``y_L`` verified by one pass); the integer counts ride
+along on both legs for the stopping rule ``count(y_L < x <= y_R) <= cap``
+that sizes the static ``(B, cap)`` compaction.  Invariant per row:
+``measure(x <= y_L) < k <= measure(x <= y_R)``.  With exactly summable
+weights (integers, dyadic rationals with a bounded total) every mass
+comparison is exact, and uniform weights reproduce the counting leg bit
+for bit; with other weights the masses are f32 sums, and a decision near
+``k`` can flip with the order of summation, which the certificates fail
+safe against (a late ``hit_lo`` stalls, the finalize re-measures).
 
 PyTorch idiom: the reference's ``lax.while_loop`` is a host loop with one
 ``bool(live.any())`` device sync per sweep or iteration, and its ``vmap``
@@ -37,8 +48,8 @@ carried in f32 and kept ``(B, 1)``-shaped where they meet the data, so the
 comparisons run in f32 (torch would compare a bf16 tensor with a 0-dim f32
 tensor in bf16).
 
-Not in this slice: ``binned_polish``, ``prior=`` warm starts, the weighted
-leg, segmented selection and the distributed engine (see ROADMAP.md).
+Not ported yet: ``binned_polish``, ``prior=`` warm starts, segmented
+selection and the distributed engine (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -49,7 +60,8 @@ import torch
 
 from repro_torch.core import transforms
 from repro_torch.core.objective import (FG, Evaluator, RowsEvaluator,
-                                        SharedEvaluator, os_weights)
+                                        SharedEvaluator, _weight_accum_dtype,
+                                        os_weights)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import bin_edges
 
@@ -116,13 +128,17 @@ def _resolve_method(method: Optional[str], n: int) -> str:
     return method
 
 
-def _resolve_nbins(nbins: Optional[int], x: torch.Tensor) -> int:
+def _resolve_nbins(nbins: Optional[int], x: torch.Tensor,
+                   w: Optional[torch.Tensor] = None) -> int:
     """``None`` -> ``DEF_NBINS`` where the histogram kernel runs (f32/bf16
-    on the card), ``DEF_NBINS_JNP`` where the plain version runs (the CPU,
-    and f64 anywhere).  Explicit values always win."""
+    on the card, for both operands with weights ``w``), ``DEF_NBINS_JNP``
+    where the plain version runs (the CPU, and f64 anywhere — either
+    operand on the weighted leg).  Explicit values always win."""
     if nbins is not None:
         return int(nbins)
-    return DEF_NBINS if ops.uses_kernel(x) else DEF_NBINS_JNP
+    kernel = ops.uses_kernel(x) if w is None else ops.uses_kernel_weighted(
+        x, w)
+    return DEF_NBINS if kernel else DEF_NBINS_JNP
 
 
 def _propose_cp(s: BatchState):
@@ -172,9 +188,14 @@ def _live(s: BatchState, cap):
 def _seed_state(ev: Evaluator):
     """Shared loop seed: analytic bracket/cut init from one stats pass.
 
-    Returns ``(s0, xmin, xmax, kk, dtype)``.  The slopes use the paper's
-    normalized weights with the conservative tie count 1, which keeps the
-    support lines *lower* bounds (valid cuts) even with duplicated extremes.
+    Returns ``(s0, xmin, xmax, kk, dtype)``.  Counting leg: the slopes use
+    the paper's normalized weights with the conservative tie count 1, which
+    keeps the support lines *lower* bounds (valid cuts) even with
+    duplicated extremes.  Weighted leg: the mass-normalized coefficients
+    ``alpha = (W - wk)/W`` and ``beta = wk/W`` with the conservative extreme
+    slopes ``-wk/W`` / ``(W - wk)/W`` (no mass assumed at the extremes —
+    flatter than the truth, so the support lines stay lower bounds); the f
+    seeds anchor on the weighted mean.
     """
     xmin, xmax, xmean = ev.init_stats()
     shape = torch.broadcast_shapes(xmin.shape, ev.k.shape)
@@ -184,10 +205,17 @@ def _seed_state(ev: Evaluator):
     xmin, xmax = xmin.broadcast_to(shape), xmax.broadcast_to(shape)
     xmean = xmean.to(dtype).broadcast_to(shape)
 
-    nf = torch.full(shape, ev.n, dtype=dtype, device=dev)
-    alpha, beta = os_weights(nf, kk, dtype)
-    gL0 = alpha * (1.0 / nf) - beta * (nf - 1.0) / nf
-    gR0 = alpha * (nf - 1.0) / nf - beta * (1.0 / nf)
+    if ev.weighted:
+        Wf = ev.W.to(kk.dtype).broadcast_to(shape)
+        Wsafe = torch.clamp(Wf, min=1e-30)
+        alpha = ((Wf - kk) / Wsafe).to(dtype)
+        beta = (kk / Wsafe).to(dtype)
+        gL0, gR0 = -beta, alpha
+    else:
+        nf = torch.full(shape, ev.n, dtype=dtype, device=dev)
+        alpha, beta = os_weights(nf, kk, dtype)
+        gL0 = alpha * (1.0 / nf) - beta * (nf - 1.0) / nf
+        gR0 = alpha * (nf - 1.0) / nf - beta * (1.0 / nf)
 
     # Analytic init at the extremes (paper: single fused reduction).
     fL0 = beta * (xmean - xmin)
@@ -217,8 +245,11 @@ def bracket_loop_batched(
     """Run the batched bracket-shrinking loop against an evaluator.
 
     Per live row, one pivot ``t`` per iteration: ``m_lt < k <= m_le``
-    certifies ``t`` as the order statistic, ``m_le < k`` moves the left end
-    to ``t``, otherwise the right end moves.  Rows stop independently once
+    certifies ``t`` as the order statistic (on the weighted leg
+    ``m_lt < m_le`` forces positive mass at ``t``, so a certified pivot is a
+    data element), ``m_le < k`` moves the left end to ``t``, otherwise the
+    right end moves; the measure is the evaluator's, compared in its own
+    dtype.  Rows stop independently once
     certified or once ``count(y_L < x <= y_R) <= cap``; the loop ends when
     no row is live or after ``maxit`` iterations.
 
@@ -309,13 +340,17 @@ def binned_loop_batched(
     Each sweep builds the bracket's realized edges once
     (``kernels.ref.bin_edges``), calls ``ev.histogram(edges)`` — ONE fused
     data pass — and narrows every live row's bracket to the single
-    sub-interval ``(e_{j-1}, e_j]`` whose prefix count straddles that row's
-    target (:func:`binned_descent_step`).  Brackets only move to REALIZED
-    edge values whose prefix counts were measured, so the row invariant
-    ``count(x <= yL) < k <= count(x <= yR)`` holds exactly at every step.
-    Rows stop once their in-bracket count is under ``cap``, on the exact
-    certificates, on a stall, or at ``maxit``.  A late ``hit_lo`` (the
-    invariant forbids it after sweep 1) is demoted to a stall.
+    sub-interval ``(e_{j-1}, e_j]`` whose prefix MEASURE straddles that
+    row's target (:func:`binned_descent_step`; int32 counts, or weight
+    masses on the weighted leg — the decision is ordering-only, so both
+    legs take the same path).  Brackets only move to REALIZED edge values
+    whose prefix measures were measured, so the row invariant
+    ``measure(x <= yL) < k <= measure(x <= yR)`` holds at every step.
+    Integer prefix counts at the chosen edges feed the cap rule on both
+    legs: rows stop once their in-bracket count is under ``cap``, on the
+    exact certificates, on a stall, or at ``maxit``.  A late ``hit_lo``
+    (the invariant forbids it after sweep 1; with inexact masses it can
+    only be a summation-order flip) is demoted to a stall.
 
     Returns ``(BatchState, xmin, xmax)``; ``iters`` counts histogram sweeps.
     """
@@ -335,11 +370,15 @@ def binned_loop_batched(
         # the realized edges are computed ONCE here and shared by the data
         # pass and the narrowing decision (the exactness contract)
         edges = bin_edges(s.yL, s.yR, nbins)
-        cnt, _, _ = ev.histogram(edges)
+        cnt, mass, _ = ev.histogram(edges)
         # prefix counts at the realized edges: cum[..., j] = count(x <= e_j)
-        cum = torch.cumsum(cnt[..., :-1], dim=-1, dtype=torch.int32)
-        yLn, yRn, cLn, cRn, _, _, hit_lo, exact, stall = \
+        cumn = torch.cumsum(cnt[..., :-1], dim=-1, dtype=torch.int32)
+        # the prefix measures decide the narrowing (the counts themselves on
+        # the counting leg)
+        cum = cumn if mass is cnt else torch.cumsum(mass[..., :-1], dim=-1)
+        yLn, yRn, _, _, jm1, jstar, hit_lo, exact, stall = \
             binned_descent_step(cum, edges, s.yL, s.yR, kk)
+        cLn, cRn = _take(cumn, jm1), _take(cumn, jstar)
         late_hit_lo = hit_lo & (s.it > 0)
         exact = lv & exact & ~late_hit_lo
         t_ex = torch.where(hit_lo, s.yL, yRn)
@@ -366,15 +405,15 @@ def _run_bracket_phase(ev, method, maxit, cap, nbins):
     return bracket_loop_batched(ev, method=method, maxit=maxit, cap=cap)
 
 
-def rank_compact(mask_in: torch.Tensor, cap: int, values: torch.Tensor,
-                 pad: torch.Tensor):
+def rank_compact(mask_in: torch.Tensor, cap: int, cols):
     """First-``cap`` survivors of each row of a (B, n) mask by RANK GATHER.
 
     The paper's ``copy_if`` as a static-shape gather: ``pos`` is each
     element's inclusive survivor rank (an int32 cumsum of the mask), so the
-    i-th survivor's index is ``searchsorted(pos, i)``.  Returns the
-    ``(B, cap)`` buffer of ``values`` at the survivors (``pad`` past the
-    last one) and the survivor counts ``n_in``.
+    i-th survivor's index is ``searchsorted(pos, i)``.  ``cols`` is a
+    sequence of ``(values, pad)`` pairs gathered at the same survivor
+    indices (aligned buffers, ``pad`` past the last survivor).  Returns the
+    list of ``(B, cap)`` buffers and the survivor counts ``n_in``.
     """
     b, n = mask_in.shape
     n_in = torch.sum(mask_in, dim=1, dtype=torch.int32)
@@ -383,38 +422,74 @@ def rank_compact(mask_in: torch.Tensor, cap: int, values: torch.Tensor,
     idx = torch.searchsorted(pos, want.expand(b, cap).contiguous(),
                              side="left").clamp(max=n - 1)
     have = want[None, :] <= n_in[:, None]
-    return torch.where(have, torch.gather(values, 1, idx), pad), n_in
+    return [torch.where(have, torch.gather(v, 1, idx), pad)
+            for v, pad in cols], n_in
 
 
-def _compact_interval(x, yL, yR, cap):
-    """Phase-2 survivor compaction + fallback probes, row-wise (counting leg).
+def _compact_interval(x, yL, yR, cap, w=None):
+    """Phase-2 survivor compaction + fallback probes, row-wise.
 
     The open pivot interval ``(yL, yR]`` of each row lands in a (B, cap)
     buffer via :func:`rank_compact` (first ``cap`` survivors in data order,
-    +inf pad), next to the counts the answer assembly needs: ``cL =
-    count(x <= yL)``, the in-bracket count, the next distinct value above
-    ``yL`` and its inclusive count (tie fallback verification).  The
+    +inf pad), next to the measures the answer assembly needs: ``cLm =
+    measure(x <= yL)``, the in-bracket count, the next distinct value above
+    ``yL`` and its inclusive measure (tie fallback verification).  The
     brackets are (B, 1) columns, so bf16 data is compared in f32.
+
+    ``w=None`` is the counting leg: the measures are int32 counts and the
+    weight buffer comes back ``None``.  With weights ``w`` (B, n), the
+    (value, weight) pairs land in aligned buffers (pad weights 0, so the
+    sorted prefix masses are unaffected) and the measures are masses in
+    ``w``'s dtype.
     """
     big = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
     lo, hi = yL[:, None], yR[:, None]
     mask_in = (x > lo) & (x <= hi)
-    cL = torch.sum(x <= lo, dim=1, dtype=torch.int32)
     vnext = torch.amin(torch.where(x > lo, x, big), dim=1)
-    z, n_in = rank_compact(mask_in, cap, x, big)
-    m_le_v = torch.sum(x <= vnext[:, None], dim=1, dtype=torch.int32)
-    return z, cL, n_in, vnext, m_le_v
+    if w is None:
+        cL = torch.sum(x <= lo, dim=1, dtype=torch.int32)
+        (z,), n_in = rank_compact(mask_in, cap, [(x, big)])
+        m_le_v = torch.sum(x <= vnext[:, None], dim=1, dtype=torch.int32)
+        return z, None, cL, n_in, vnext, m_le_v
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    (z, zw), n_in = rank_compact(mask_in, cap, [(x, big), (w, zero)])
+    cLw = torch.sum(torch.where(x <= lo, w, zero), dim=1, dtype=w.dtype)
+    w_le_v = torch.sum(torch.where(x <= vnext[:, None], w, zero), dim=1,
+                       dtype=w.dtype)
+    return z, zw, cLw, n_in, vnext, w_le_v
 
 
-def _assemble_answers(kk, s: BatchState, cap, zs, cLm, n_in, vnext, m_le_v,
-                      m_lt_max, xmin, xmax) -> SelectResult:
+def _assemble_answers(kk, s: BatchState, cap, zs, zws, cLm, n_in, vnext,
+                      m_le_v, m_lt_max, xmin, xmax) -> SelectResult:
     """Per-row answer/status cascade from the sorted ``(B, cap)`` buffer
-    ``zs`` and the exact integer counts."""
-    sort_idx = torch.clamp(kk - cLm - 1, 0, cap - 1)
-    ans_sort = _take(zs, sort_idx)
-    sort_ok = n_in <= cap
-    at_min = cLm >= kk
-    at_max = m_lt_max < kk
+    ``zs`` (its aligned weights ``zws``, ``None`` on the counting leg) and
+    the measures.
+
+    Counting leg: the in-buffer answer is direct indexing at ``k - cL - 1``
+    and the extreme shortcuts fire off the exact integer counts.  Weighted
+    leg: the answer is the first survivor whose cumulative mass (on top of
+    the below-bracket mass ``cLm``) reaches ``k``; because these masses are
+    re-measured by sums in another order than the loop's passes, the
+    buffer certifies only when its mass actually reaches ``k``, and the
+    extreme shortcuts are gated on the seed bracket (a rounding flip near
+    ``k`` with the bracket off the extreme falls through to the sort /
+    fallback chain — fail safe).
+    """
+    if zws is None:
+        sort_idx = torch.clamp(kk - cLm - 1, 0, cap - 1)
+        ans_sort = _take(zs, sort_idx)
+        sort_ok = n_in <= cap
+        at_min = cLm >= kk
+        at_max = m_lt_max < kk
+    else:
+        reach = cLm[..., None] + torch.cumsum(zws, dim=-1) >= kk[..., None]
+        # first True of each row (argmax on bool is not on every build)
+        ans_sort = _take(zs, torch.argmax(reach.to(torch.int32), dim=-1))
+        # the buffer certifies only when it holds every survivor AND its
+        # mass reaches k (an all-False argmax must not certify)
+        sort_ok = (n_in <= cap) & reach[..., -1]
+        at_min = (cLm >= kk) & (s.yL == xmin)
+        at_max = (m_lt_max < kk) & (s.yR == xmax)
     fallback_ok = (cLm < kk) & (kk <= m_le_v)
 
     value = torch.where(
@@ -444,39 +519,64 @@ def _assemble_answers(kk, s: BatchState, cap, zs, cLm, n_in, vnext, m_le_v,
     )
 
 
-def _finalize_rows(x, kk, s: BatchState, cap, xmin, xmax) -> SelectResult:
+def _sort_buffers(z, zw):
+    """Sort the compacted values; on the weighted leg carry the aligned
+    weights through the same permutation."""
+    if zw is None:
+        return torch.sort(z, dim=-1).values, None
+    zs, order = torch.sort(z, dim=-1, stable=True)
+    return zs, torch.gather(zw, -1, order)
+
+
+def _finalize_rows(x, kk, s: BatchState, cap, xmin, xmax,
+                   w=None) -> SelectResult:
     """Exact per-row recovery from the final brackets.
 
     Pass 1 (the paper's ``copy_if`` + count, row-wise): compact each row's
-    open pivot interval into a (B, cap) buffer, count ``x <= y_L`` and find
-    the next distinct value above ``y_L``; one batched sort of the buffer.
-    Pass 2 (tie fallback verification): ``count(x <= vnext)`` per row.
+    open pivot interval into a (B, cap) buffer (value, weight pairs with
+    weights ``w``), measure ``x <= y_L`` and find the next distinct value
+    above ``y_L``; one batched sort of the buffer.  Pass 2 (tie fallback
+    verification): ``measure(x <= vnext)`` per row.
     """
-    z, cLm, n_in, vnext, m_le_v = _compact_interval(x, s.yL, s.yR, cap)
-    zs = torch.sort(z, dim=-1).values
-    m_lt_max = torch.sum(x < xmax[:, None], dim=1, dtype=torch.int32)
-    return _assemble_answers(kk, s, cap, zs, cLm, n_in, vnext, m_le_v,
+    z, zw, cLm, n_in, vnext, m_le_v = _compact_interval(x, s.yL, s.yR, cap,
+                                                        w)
+    zs, zws = _sort_buffers(z, zw)
+    below_max = x < xmax[:, None]
+    if w is None:
+        m_lt_max = torch.sum(below_max, dim=1, dtype=torch.int32)
+    else:
+        m_lt_max = torch.sum(torch.where(below_max, w, 0), dim=1,
+                             dtype=w.dtype)
+    return _assemble_answers(kk, s, cap, zs, zws, cLm, n_in, vnext, m_le_v,
                              m_lt_max, xmin, xmax)
 
 
-def _finalize_shared(x, kk, s: BatchState, cap, xmin, xmax) -> SelectResult:
+def _finalize_shared(x, kk, s: BatchState, cap, xmin, xmax,
+                     w=None) -> SelectResult:
     """Shared-x exact finalize on per-pivot compacted buffers.
 
     The compaction runs pivot by pivot against the ONE ``(n,)`` array (a
-    ``(1, n)`` view through :func:`_compact_interval`), so peak memory
-    stays O(n + K*cap) and no ``(K, n)`` tensor exists.  ``xmin``/``xmax``
-    are (K,) broadcasts of the global extremes, so one shared count gives
-    every pivot's ``count(x < max)``.
+    ``(1, n)`` view through :func:`_compact_interval`, the (value, weight)
+    pair with weights ``w``), so peak memory stays O(n + K*cap) and no
+    ``(K, n)`` tensor exists.  ``xmin``/``xmax`` are (K,) broadcasts of the
+    global extremes, so one shared pass gives every pivot's
+    ``measure(x < max)``.
     """
     x = x.reshape(1, -1)
-    parts = [_compact_interval(x, s.yL[j:j + 1], s.yR[j:j + 1], cap)
+    if w is not None:
+        w = w.reshape(1, -1)
+    parts = [_compact_interval(x, s.yL[j:j + 1], s.yR[j:j + 1], cap, w)
              for j in range(kk.shape[0])]
-    z, cLm, n_in, vnext, m_le_v = (torch.cat(p) for p in zip(*parts))
-    zs = torch.sort(z, dim=-1).values
-    m_lt_max = torch.sum(x < torch.amax(xmax), dtype=torch.int32
-                         ).broadcast_to(kk.shape)
-    return _assemble_answers(kk, s, cap, zs, cLm, n_in, vnext, m_le_v,
-                             m_lt_max, xmin, xmax)
+    z, zw, cLm, n_in, vnext, m_le_v = (
+        None if p[0] is None else torch.cat(p) for p in zip(*parts))
+    zs, zws = _sort_buffers(z, zw)
+    below_max = x < torch.amax(xmax)
+    if w is None:
+        m_lt_max = torch.sum(below_max, dtype=torch.int32)
+    else:
+        m_lt_max = torch.sum(torch.where(below_max, w, 0), dtype=w.dtype)
+    return _assemble_answers(kk, s, cap, zs, zws, cLm, n_in, vnext, m_le_v,
+                             m_lt_max.broadcast_to(kk.shape), xmin, xmax)
 
 
 def _default_cap(n: int) -> int:
@@ -724,3 +824,192 @@ def quantiles(x: torch.Tensor, qs, **kw) -> SelectResult:
     so a decile vector costs the data traffic of a single median, not ~K
     times it."""
     return multi_order_statistic(x, ranks_from_quantiles(qs, x.numel()), **kw)
+
+
+# ---------------------------------------------------------------------------
+# Weighted order statistics: the same loops and finalize on an evaluator
+# whose measure is the weight mass (uniform weights with wk = k reproduce
+# the counting answers bit for bit)
+# ---------------------------------------------------------------------------
+
+
+def _weighted_sort_cumsum(xs, cumw, wkk):
+    """Answer of the full-sort baseline: the first sorted value whose
+    cumulative mass reaches the target; the maximum where nothing reaches
+    it (the target exceeds the measured total: the limit of the
+    definition)."""
+    reach = cumw >= wkk[..., None]
+    idx = torch.argmax(reach.to(torch.int32), dim=-1)
+    return torch.where(reach[..., -1], _take(xs, idx), xs[..., -1])
+
+
+def weighted_select_rows(
+    x: torch.Tensor,
+    w,
+    wk,
+    *,
+    method: Optional[str] = None,
+    maxit: int = 64,
+    cap: Optional[int] = None,
+    nbins: Optional[int] = None,
+    prior=None,
+) -> SelectResult:
+    """Rows-mode weighted selection: ``x``/``w`` (B, n), ``wk`` scalar or
+    (B,) target cumulative weights.
+
+    Row ``i`` returns the smallest element ``v`` of ``x[i]`` with
+    ``sum(w[i, x[i] <= v]) >= wk[i]`` (``wk`` clipped to the row's total
+    mass).  Weights must be non-negative; uniform weights with ``wk = k``
+    reproduce :func:`select_rows` exactly.  Options as :func:`select_rows`
+    without ``transform``; ``method='sort'`` is the weighted sort-cumsum
+    baseline.  ``nbins=None`` resolves on both operands (an f64 ``w`` on
+    f32 ``x`` takes the plain version and its 16 bins).  Computes on
+    ``x``'s device; ``w`` is moved there.
+    """
+    if prior is not None:
+        raise NotImplementedError("prior= warm starts are not ported yet")
+    if x.dim() != 2:
+        raise ValueError(f"weighted_select_rows wants (B, n) data, got "
+                         f"{tuple(x.shape)}")
+    b, n = x.shape
+    w = torch.as_tensor(w, device=x.device).broadcast_to(x.shape)
+    method = _resolve_method(method, n)
+    nbins = _resolve_nbins(nbins, x, w)
+    if cap is None:
+        cap = _default_cap_rows(n)
+    cap = min(cap, n)
+    ev = RowsEvaluator(x, wk, weights=w)
+    wkk = ev.k  # clipped target masses, accumulation dtype, (B,)
+
+    if method == "sort":
+        xs, order = torch.sort(x, dim=1, stable=True)
+        ws = torch.gather(w.to(wkk.dtype), 1, order)
+        return SelectResult(
+            value=_weighted_sort_cumsum(xs, torch.cumsum(ws, dim=1), wkk),
+            iters=torch.zeros((b,), dtype=torch.int32, device=x.device),
+            status=torch.full((b,), EXACT_HIT, dtype=torch.int32,
+                              device=x.device),
+            y_lo=xs[:, 0], y_hi=xs[:, -1],
+            n_in=torch.full((b,), n, dtype=torch.int32, device=x.device),
+        )
+
+    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins)
+    return _finalize_rows(ev.x, wkk, s, cap, xmin, xmax,
+                          w=ev.w.to(wkk.dtype))
+
+
+def weighted_order_statistic(
+    x: torch.Tensor,
+    w,
+    wk,
+    *,
+    method: Optional[str] = None,
+    maxit: int = 64,
+    cap: Optional[int] = None,
+    nbins: Optional[int] = None,
+    prior=None,
+) -> SelectResult:
+    """Smallest element of ``x`` whose cumulative weight reaches ``wk``:
+    the ``B = 1`` view of :func:`weighted_select_rows` with the scalar cap
+    policy.  With ``w = ones`` and ``wk = k`` this is exactly
+    :func:`order_statistic`."""
+    x = x.reshape(-1)
+    if cap is None:
+        cap = _default_cap(x.numel())
+    res = weighted_select_rows(
+        x[None, :], torch.as_tensor(w, device=x.device).reshape(1, -1),
+        torch.as_tensor(wk, device=x.device).reshape(1),
+        method=method, maxit=maxit, cap=cap, nbins=nbins, prior=prior,
+    )
+    return SelectResult(*(a[0] for a in res))
+
+
+def _total_mass(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Total weight in the mass accumulation dtype (the ``wk``/``W``
+    reference)."""
+    return torch.sum(w, dtype=_weight_accum_dtype(x, w))
+
+
+def weighted_median(x: torch.Tensor, w, **kw) -> SelectResult:
+    """Lower weighted median: smallest v with ``mass(x <= v) >= W/2``.
+    Uniform weights reproduce :func:`median` (= x_([(n+1)/2])) exactly."""
+    w = torch.as_tensor(w, device=x.device).reshape(-1)
+    return weighted_order_statistic(x, w, 0.5 * _total_mass(x, w), **kw)
+
+
+def weighted_quantile(x: torch.Tensor, w, q, **kw) -> SelectResult:
+    """Lower weighted q-quantile: smallest v with ``mass(x <= v) >= q*W``."""
+    w = torch.as_tensor(w, device=x.device).reshape(-1)
+    W = _total_mass(x, w)
+    return weighted_order_statistic(
+        x, w, torch.as_tensor(q, dtype=W.dtype, device=x.device) * W, **kw)
+
+
+def weighted_multi_order_statistic(
+    x: torch.Tensor,
+    w,
+    wks,
+    *,
+    method: Optional[str] = None,
+    maxit: int = 64,
+    cap: Optional[int] = None,
+    nbins: Optional[int] = None,
+    prior=None,
+) -> SelectResult:
+    """Several weighted order statistics of the SAME array at once.
+
+    Shared-x mode, as :func:`multi_order_statistic`: all K target masses
+    ``wks`` iterate together against a weighted :class:`SharedEvaluator`
+    (kernels K3w and K4w on the card read ``x`` and ``w`` once per sweep or
+    pass for all K), and the finalize compacts each target's (value,
+    weight) survivors from the ``(n,)`` arrays.  Every field of the result
+    is (K,)-shaped.  Options as :func:`weighted_select_rows`, with the
+    batched cap policy.
+    """
+    if prior is not None:
+        raise NotImplementedError("prior= warm starts are not ported yet")
+    x = x.reshape(-1)
+    n = x.numel()
+    w = torch.as_tensor(w, device=x.device).reshape(-1).broadcast_to(x.shape)
+    method = _resolve_method(method, n)
+    nbins = _resolve_nbins(nbins, x, w)
+    if cap is None:
+        cap = _default_cap_rows(n)
+    cap = min(cap, n)
+    ev = SharedEvaluator(x, wks, weights=w)
+    wkk = ev.k
+    nk = wkk.shape[0]
+
+    if method == "sort":
+        xs, order = torch.sort(x, stable=True)
+        cumw = torch.cumsum(w.to(wkk.dtype)[order], dim=0)
+        # the first sorted value whose cumulative mass reaches each target
+        # (the maximum where none does), without a (K, n) comparison
+        idx = torch.searchsorted(cumw, wkk).clamp(max=n - 1)
+        return SelectResult(
+            value=xs[idx],
+            iters=torch.zeros((nk,), dtype=torch.int32, device=x.device),
+            status=torch.full((nk,), EXACT_HIT, dtype=torch.int32,
+                              device=x.device),
+            y_lo=xs[0].broadcast_to((nk,)), y_hi=xs[-1].broadcast_to((nk,)),
+            n_in=torch.full((nk,), n, dtype=torch.int32, device=x.device),
+        )
+
+    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins)
+    return _finalize_shared(ev.x, wkk, s, cap, xmin, xmax,
+                            w=ev.w.to(wkk.dtype))
+
+
+def weighted_quantiles(x: torch.Tensor, w, qs, **kw) -> SelectResult:
+    """Lower weighted quantiles at each q in ``qs`` from one shared-x
+    solve.  The target masses ``q * W`` are formed on the host in f64 and
+    rounded once into the accumulation dtype (the rationale of
+    :func:`ranks_from_quantiles`)."""
+    x = x.reshape(-1)
+    w = torch.as_tensor(w, device=x.device).reshape(-1)
+    W = _total_mass(x, w)
+    if isinstance(qs, torch.Tensor):
+        qs = qs.detach().cpu().numpy()
+    wks = torch.as_tensor(np.asarray(qs, np.float64).reshape(-1) * float(W),
+                          dtype=W.dtype, device=x.device)
+    return weighted_multi_order_statistic(x, w, wks, **kw)

@@ -1,19 +1,30 @@
 """CUDA kernels of the selection engine's data passes, and their wrappers.
 
 Four hand-written kernels for Hopper (``sm_90a``), built from ``csrc/`` by
-:mod:`repro_torch.kernels._build` at first use, each on its counting leg:
+:mod:`repro_torch.kernels._build` at first use, each with a counting leg
+and a weighted leg (a static specialization of the same source):
 
-* K1 ``csrc/hist_batched.cu`` behind :func:`cp_histogram_batched` — the
-  row-wise binned sweep (replaces the TPU body ``_hist_kernel_batched`` of
+* K1 ``csrc/hist_batched.cu`` behind :func:`cp_histogram_batched` and, on
+  the weighted leg, :func:`wcp_histogram_batched` (K1w) — the row-wise
+  binned sweep (replaces the TPU body ``_hist_kernel_batched`` of
   ``repro/kernels/cp_objective.py``), without per-slot sums;
-* K2 ``csrc/fg_batched.cu`` behind :func:`cp_partials_batched` — the
-  row-wise cutting-plane pass (replaces ``_fg_kernel_batched``);
+* K2 ``csrc/fg_batched.cu`` behind :func:`cp_partials_batched` and
+  :func:`wcp_partials_batched` (K2w) — the row-wise cutting-plane pass
+  (replaces ``_fg_kernel_batched``);
 * K3 ``csrc/hist_multi.cu`` behind :func:`cp_histogram_multi` and its K=1
-  view :func:`cp_histogram` — one shared array binned against K ladders in
-  one read (replaces ``_hist_kernel_multi``), without per-slot sums;
+  view :func:`cp_histogram`, and :func:`wcp_histogram_multi` /
+  :func:`wcp_histogram` (K3w) — one shared array binned against K ladders
+  in one read (replaces ``_hist_kernel_multi``), without per-slot sums;
 * K4 ``csrc/fg_multi.cu`` behind :func:`cp_partials_multi` and its K=1
-  view :func:`cp_partials` — the partials of K pivots from one read of a
+  view :func:`cp_partials`, and :func:`wcp_partials_multi` /
+  :func:`wcp_partials` (K4w) — the partials of K pivots from one read of a
   shared array (replaces ``_fg_kernel_multi``).
+
+On the weighted leg ``x`` and ``w`` are each f32 or bf16, both read as
+f32.  Every f32 sum there — the masses that decide the weighted narrowing
+included — comes from per-block partials reduced over blocks here in a
+fixed order, with a block count that depends on ``n`` alone, so the same
+input gives the same bits from run to run.
 
 Each wrapper checks what the kernel takes and raises on anything else,
 allocates the outputs, launches on the current stream, raises on a
@@ -32,7 +43,10 @@ from repro_torch.kernels import _build
 # exactly where it launches its kernel
 LAUNCHES = {"cp_histogram_batched": 0, "cp_partials_batched": 0,
             "cp_histogram_multi": 0, "cp_partials_multi": 0,
-            "cp_histogram": 0, "cp_partials": 0}
+            "cp_histogram": 0, "cp_partials": 0,
+            "wcp_histogram_batched": 0, "wcp_partials_batched": 0,
+            "wcp_histogram_multi": 0, "wcp_partials_multi": 0,
+            "wcp_histogram": 0, "wcp_partials": 0}
 
 # K1: blocks resident per SM that the grid aims to fill (integer atomics make
 # the counts independent of the block count, so it may follow the card)
@@ -53,8 +67,13 @@ MAX_ROWS = 65535  # grid.y limit
 # block may hold
 HIST_MULTI_GROUP = 16
 HIST_OPTIN_SMEM = 227 * 1024
-# K4: at most 16 pivots share a block (four register accumulators each)
+# K4: at most 16 pivots share a block (four register accumulators each,
+# six on the weighted leg)
 FG_MULTI_GROUP = 16
+# K1w/K3w: at most 8 warps per block, each with its own f32 mass row per
+# ladder in shared memory; the block count is fg_blocks(n), so the order
+# of the mass sums depends on n alone
+WHIST_MAX_WARPS = 8
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -63,6 +82,11 @@ _SIGNATURES = {
     "fg_batched": [_P, _P, _P, _P, _I64, _I64, _I32, _P],
     "hist_multi": [_P, _P, _P, _I64, _I32, _I32, _I32, _P],
     "fg_multi": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
+    "whist_batched": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
+    "wfg_batched": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _P],
+    "whist_multi": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+                    _P],
+    "wfg_multi": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
 }
 _fns: dict = {}
 
@@ -72,13 +96,19 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _kernel_fn(lib_name: str, dtype: torch.dtype):
-    name = f"{lib_name}_{_KERNEL_DTYPES[dtype]}"
+def _kernel_fn(lib_name: str, dtype: torch.dtype, wdtype=None):
+    """The C entry of ``csrc/<lib_name>.cu`` for ``x`` of ``dtype`` — on
+    the weighted leg (``wdtype``, the weights' dtype) the ``w``-prefixed
+    entry for that pair of types."""
+    prefix = lib_name if wdtype is None else f"w{lib_name}"
+    name = f"{prefix}_{_KERNEL_DTYPES[dtype]}"
+    if wdtype is not None:
+        name += f"_{_KERNEL_DTYPES[wdtype]}"
     fn = _fns.get(name)
     if fn is None:
         lib = _build.load(lib_name)
         fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[lib_name]
+        fn.argtypes = _SIGNATURES[prefix]
         fn.restype = ctypes.c_int
         err = lib.cuda_error_string
         err.argtypes = [ctypes.c_int]
@@ -114,6 +144,20 @@ def _check_data(x: torch.Tensor, shared: bool = False) -> None:
                          f"{x.shape[0]}")
     if x.shape[-1] >= 2 ** 31:
         raise ValueError("int32 counts hold rows of fewer than 2^31 elements")
+
+
+def _check_weights(w: torch.Tensor, x: torch.Tensor) -> None:
+    """What the weighted legs take for ``w``: ``x``'s device and shape,
+    f32 or bf16, contiguous."""
+    if w.device != x.device:
+        raise ValueError(f"w must be on {x.device}, got {w.device}")
+    if w.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"w must be float32 or bfloat16, got {w.dtype}")
+    if w.shape != x.shape:
+        raise ValueError(f"w must be shaped like x {tuple(x.shape)}, got "
+                         f"{tuple(w.shape)}")
+    if not w.is_contiguous():
+        raise ValueError("w must be contiguous")
 
 
 def _check_side(t: torch.Tensor, x: torch.Tensor, shape, name: str) -> None:
@@ -166,28 +210,41 @@ def cp_histogram_batched(x: torch.Tensor, edges: torch.Tensor):
     return cnt, None
 
 
-def cp_partials_batched(x: torch.Tensor, y: torch.Tensor):
-    """K2: per-row ``(sum_pos, sum_neg, n_lt, n_le)`` of ``d = x - y`` for
-    ``x`` (B, n) f32/bf16 and pivots ``y`` (B,) (cast to f32, as the
-    kernel compares in f32).  Sums f32, counts int32, each (B,)."""
+def _fg_batched(x: torch.Tensor, w, y: torch.Tensor, key: str):
+    """Launch K2 (``w=None``) or K2w on ``x`` (B, n) and pivots ``y`` (B,),
+    then reduce the per-block partials in a fixed order; counts one launch
+    under ``LAUNCHES[key]``.  Returns the f32 sums (two, or four with
+    weights) then the two int32 counts, each (B,)."""
     _check_data(x)
+    if w is not None:
+        _check_weights(w, x)
     rows, n = x.shape
     y = y.to(torch.float32).contiguous()
     _check_side(y, x, (rows,), "y")
     nblk = fg_blocks(n)
-    fsum = torch.empty((rows, nblk, 2), dtype=torch.float32, device=x.device)
+    nsums = 2 if w is None else 4
+    fsum = torch.empty((rows, nblk, nsums), dtype=torch.float32,
+                       device=x.device)
     cnt = torch.empty((rows, nblk, 2), dtype=torch.int32, device=x.device)
     if rows > 0:
-        fn = _kernel_fn("fg_batched", x.dtype)
+        fn = _kernel_fn("fg_batched", x.dtype, None if w is None else w.dtype)
+        data = (x.data_ptr(),) if w is None else (x.data_ptr(), w.data_ptr())
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = fn(x.data_ptr(), y.data_ptr(), fsum.data_ptr(),
-                    cnt.data_ptr(), rows, n, nblk, stream)
+            rc = fn(*data, y.data_ptr(), fsum.data_ptr(), cnt.data_ptr(),
+                    rows, n, nblk, stream)
         _raise_on(rc, "fg_batched")
-        LAUNCHES["cp_partials_batched"] += 1
+        LAUNCHES[key] += 1
     s = torch.sum(fsum, dim=1)
     c = torch.sum(cnt, dim=1, dtype=torch.int32)
-    return s[:, 0], s[:, 1], c[:, 0], c[:, 1]
+    return (*s.unbind(1), *c.unbind(1))
+
+
+def cp_partials_batched(x: torch.Tensor, y: torch.Tensor):
+    """K2: per-row ``(sum_pos, sum_neg, n_lt, n_le)`` of ``d = x - y`` for
+    ``x`` (B, n) f32/bf16 and pivots ``y`` (B,) (cast to f32, as the
+    kernel compares in f32).  Sums f32, counts int32, each (B,)."""
+    return _fg_batched(x, None, y, "cp_partials_batched")
 
 
 def hist_multi_group(k: int, nedges: int) -> int:
@@ -250,45 +307,197 @@ def cp_histogram(x: torch.Tensor, edges: torch.Tensor):
     return _hist_multi(x, edges[None, :], "cp_histogram")[0], None
 
 
-def _partials_multi(x: torch.Tensor, y: torch.Tensor, key: str):
-    """Launch K4 on ``x`` (n,) and f32 pivots ``y`` (K,), then reduce the
-    per-block partials in a fixed order; counts one launch under
-    ``LAUNCHES[key]``."""
+def _fg_multi(x: torch.Tensor, w, y: torch.Tensor, key: str):
+    """Launch K4 (``w=None``) or K4w on ``x`` (n,) and f32 pivots ``y``
+    (K,), then reduce the per-block partials in a fixed order; counts one
+    launch under ``LAUNCHES[key]``.  Returns the f32 sums (two, or four
+    with weights) then the two int32 counts, each (K,)."""
+    _check_data(x, shared=True)
+    if w is not None:
+        _check_weights(w, x)
     k = y.shape[0]
     _check_side(y, x, (k,), "y")
     if -(-k // FG_MULTI_GROUP) > MAX_ROWS:
         raise ValueError(f"at most {MAX_ROWS * FG_MULTI_GROUP} pivots per "
                          f"launch, got {k}")
     nblk = fg_blocks(x.shape[0])
-    fsum = torch.empty((nblk, k, 2), dtype=torch.float32, device=x.device)
+    nsums = 2 if w is None else 4
+    fsum = torch.empty((nblk, k, nsums), dtype=torch.float32,
+                       device=x.device)
     cnt = torch.empty((nblk, k, 2), dtype=torch.int32, device=x.device)
     if k > 0:
-        fn = _kernel_fn("fg_multi", x.dtype)
+        fn = _kernel_fn("fg_multi", x.dtype, None if w is None else w.dtype)
+        data = (x.data_ptr(),) if w is None else (x.data_ptr(), w.data_ptr())
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = fn(x.data_ptr(), y.data_ptr(), fsum.data_ptr(),
-                    cnt.data_ptr(), x.shape[0], k, nblk, stream)
+            rc = fn(*data, y.data_ptr(), fsum.data_ptr(), cnt.data_ptr(),
+                    x.shape[0], k, nblk, stream)
         _raise_on(rc, "fg_multi")
         LAUNCHES[key] += 1
     s = torch.sum(fsum, dim=0)
     c = torch.sum(cnt, dim=0, dtype=torch.int32)
-    return s[:, 0], s[:, 1], c[:, 0], c[:, 1]
+    return (*s.unbind(1), *c.unbind(1))
+
+
+def _pivots(x: torch.Tensor, y) -> torch.Tensor:
+    """Pivots ``y`` as the (K,) f32 vector K4 compares in."""
+    y = torch.as_tensor(y, dtype=torch.float32, device=x.device)
+    if y.dim() != 1:
+        raise ValueError(f"y must be (K,), got {tuple(y.shape)}")
+    return y.contiguous()
 
 
 def cp_partials_multi(x: torch.Tensor, y: torch.Tensor):
     """K4: ``(sum_pos, sum_neg, n_lt, n_le)`` of ``d = x - y_k`` for one
     shared ``x`` (n,) f32/bf16 and pivots ``y`` (K,) (cast to f32, as the
     kernel compares in f32).  Sums f32, counts int32, each (K,)."""
-    _check_data(x, shared=True)
-    y = y.to(torch.float32).contiguous()
-    if y.dim() != 1:
-        raise ValueError(f"y must be (K,), got {tuple(y.shape)}")
-    return _partials_multi(x, y, "cp_partials_multi")
+    return _fg_multi(x, None, _pivots(x, y), "cp_partials_multi")
 
 
 def cp_partials(x: torch.Tensor, y):
     """The K=1 view of :func:`cp_partials_multi`: ``x`` (n,) and a scalar
     pivot; returns four 0-dim tensors."""
-    _check_data(x, shared=True)
     y = torch.as_tensor(y, dtype=torch.float32, device=x.device).reshape(1)
-    return tuple(p[0] for p in _partials_multi(x, y, "cp_partials"))
+    return tuple(p[0] for p in _fg_multi(x, None, y, "cp_partials"))
+
+
+# ---------------------------------------------------------------------------
+# Weighted leg (K1w-K4w): the same sources, specialized on the weight type
+# ---------------------------------------------------------------------------
+
+
+def whist_smem(group: int, warps: int, nedges: int) -> int:
+    """Shared bytes of a K1w (``group`` 1) or K3w block: the edges, one f32
+    mass row per warp and ladder, a 32-float stage per warp and the int
+    counts per ladder."""
+    nslots = nedges + 1
+    return 4 * (group * nedges + warps * group * nslots + warps * 32
+                + group * nslots)
+
+
+def whist_layout(k: int, nedges: int) -> tuple[int, int]:
+    """``(group, warps)`` of a weighted histogram block: the smallest power
+    of two of ladders that covers ``k`` up to ``HIST_MULTI_GROUP`` and
+    ``WHIST_MAX_WARPS`` warps, the group halved and then the warps halved
+    while the block overflows ``HIST_OPTIN_SMEM``.  Raises when one ladder
+    and one warp do not fit."""
+    group = 1
+    while group < min(k, HIST_MULTI_GROUP):
+        group *= 2
+    warps = WHIST_MAX_WARPS
+    while group > 1 and whist_smem(group, warps, nedges) > HIST_OPTIN_SMEM:
+        group //= 2
+    while warps > 1 and whist_smem(group, warps, nedges) > HIST_OPTIN_SMEM:
+        warps //= 2
+    if whist_smem(group, warps, nedges) > HIST_OPTIN_SMEM:
+        raise ValueError(f"{nedges - 1} bins need "
+                         f"{whist_smem(1, 1, nedges)} bytes of shared memory "
+                         f"per weighted block; a block holds at most "
+                         f"{HIST_OPTIN_SMEM}")
+    return group, warps
+
+
+def wcp_histogram_batched(x: torch.Tensor, w: torch.Tensor,
+                          edges: torch.Tensor):
+    """K1w: per-row slot counts and masses of ``x``/``w`` (B, n), each
+    f32/bf16, against realized f32 ``edges`` (B, nbins+1).  Returns
+    ``(cnt, wcnt, None)``: int32 counts and f32 masses, each
+    (B, nbins + 2), slot layout as ``ref.searchsorted_slots``."""
+    _check_data(x)
+    _check_weights(w, x)
+    rows, n = x.shape
+    nedges = edges.shape[-1] if edges.dim() == 2 else 0
+    if nedges < 1:
+        raise ValueError(f"edges must be (B, nbins + 1), got "
+                         f"{tuple(edges.shape)}")
+    _check_side(edges, x, (rows, nedges), "edges")
+    _, warps = whist_layout(1, nedges)
+    nblk = fg_blocks(n)
+    cnt = torch.zeros((rows, nedges + 1), dtype=torch.int32, device=x.device)
+    part = torch.empty((rows, nblk, nedges + 1), dtype=torch.float32,
+                       device=x.device)
+    if rows > 0:
+        fn = _kernel_fn("hist_batched", x.dtype, w.dtype)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = fn(x.data_ptr(), w.data_ptr(), edges.data_ptr(),
+                    cnt.data_ptr(), part.data_ptr(), rows, n, nedges, nblk,
+                    warps, stream)
+        _raise_on(rc, "hist_batched")
+        LAUNCHES["wcp_histogram_batched"] += 1
+    return cnt, torch.sum(part, dim=1), None
+
+
+def wcp_partials_batched(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor):
+    """K2w: per-row ``(wsum_pos, wsum_neg, w_lt, w_le, n_lt, n_le)`` of
+    ``d = x - y`` for ``x``/``w`` (B, n), each f32/bf16, and pivots ``y``
+    (B,) (cast to f32, as the kernel compares in f32).  Sums and masses
+    f32, counts int32, each (B,)."""
+    return _fg_batched(x, w, y, "wcp_partials_batched")
+
+
+def _whist_multi(x: torch.Tensor, w: torch.Tensor, edges: torch.Tensor,
+                 key: str):
+    """Launch K3w on ``x``/``w`` (n,) and ``edges`` (K, nbins+1), then
+    reduce the per-block masses in a fixed order; counts one launch under
+    ``LAUNCHES[key]``."""
+    _check_data(x, shared=True)
+    _check_weights(w, x)
+    if edges.dim() != 2 or edges.shape[1] < 1:
+        raise ValueError(f"edges must be (K, nbins + 1), got "
+                         f"{tuple(edges.shape)}")
+    k, nedges = edges.shape
+    _check_side(edges, x, (k, nedges), "edges")
+    group, warps = whist_layout(k, nedges)
+    if -(-k // group) > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS * group} ladders per launch, "
+                         f"got {k}")
+    nblk = fg_blocks(x.shape[0])
+    cnt = torch.zeros((k, nedges + 1), dtype=torch.int32, device=x.device)
+    part = torch.empty((nblk, k, nedges + 1), dtype=torch.float32,
+                       device=x.device)
+    if k > 0:
+        fn = _kernel_fn("hist_multi", x.dtype, w.dtype)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = fn(x.data_ptr(), w.data_ptr(), edges.data_ptr(),
+                    cnt.data_ptr(), part.data_ptr(), x.shape[0], k, nedges,
+                    group, nblk, warps, stream)
+        _raise_on(rc, "hist_multi")
+        LAUNCHES[key] += 1
+    return cnt, torch.sum(part, dim=0)
+
+
+def wcp_histogram_multi(x: torch.Tensor, w: torch.Tensor,
+                        edges: torch.Tensor):
+    """K3w: slot counts and masses of one shared ``x``/``w`` (n,), each
+    f32/bf16, against K realized f32 ladders ``edges`` (K, nbins+1).
+    Returns ``(cnt, wcnt, None)``: int32 counts and f32 masses, each
+    (K, nbins + 2), slot layout as ``ref.searchsorted_slots``."""
+    return (*_whist_multi(x, w, edges, "wcp_histogram_multi"), None)
+
+
+def wcp_histogram(x: torch.Tensor, w: torch.Tensor, edges: torch.Tensor):
+    """The K=1 view of :func:`wcp_histogram_multi`: ``x``/``w`` (n,), one
+    ladder ``edges`` (nbins+1,); returns ``(cnt, wcnt, None)``, each
+    (nbins + 2,)."""
+    if edges.dim() != 1:
+        raise ValueError(f"edges must be (nbins + 1,), got "
+                         f"{tuple(edges.shape)}")
+    cnt, wcnt = _whist_multi(x, w, edges[None, :], "wcp_histogram")
+    return cnt[0], wcnt[0], None
+
+
+def wcp_partials_multi(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor):
+    """K4w: ``(wsum_pos, wsum_neg, w_lt, w_le, n_lt, n_le)`` of
+    ``d = x - y_k`` for one shared ``x``/``w`` (n,), each f32/bf16, and
+    pivots ``y`` (K,) (cast to f32, as the kernel compares in f32).  Sums
+    and masses f32, counts int32, each (K,)."""
+    return _fg_multi(x, w, _pivots(x, y), "wcp_partials_multi")
+
+
+def wcp_partials(x: torch.Tensor, w: torch.Tensor, y):
+    """The K=1 view of :func:`wcp_partials_multi`: ``x``/``w`` (n,) and a
+    scalar pivot; returns six 0-dim tensors."""
+    y = torch.as_tensor(y, dtype=torch.float32, device=x.device).reshape(1)
+    return tuple(p[0] for p in _fg_multi(x, w, y, "wcp_partials"))

@@ -1,19 +1,27 @@
 // K3: one shared array binned against K realized edge ladders in one read.
 //
 // Replaces the TPU kernel src/repro/kernels/cp_objective.py
-// `_hist_kernel_multi` (tile math `_bin_tile`), on its counting leg without
-// per-slot sums: x (n,) f32 or bf16, edges (K, nbins+1) f32, out int32
-// counts (K, nbins+2).  Slot layout per ladder as K1 (`hist_batched.cu`):
-// slot 0 is x <= e_0 (with -inf), slot j is e_{j-1} < x <= e_j, slot
-// nbins+1 is x > e_nbins and NaN, exactly what the plain version
-// `kernels/ref.py:cp_histogram_multi_ref` computes ladder by ladder.
+// `_hist_kernel_multi` (tile math `_bin_tile`) without per-slot sums, on
+// both of its legs:
+// - counting leg: x (n,) f32 or bf16, edges (K, nbins+1) f32, out int32
+//   counts (K, nbins+2);
+// - weighted leg (K3w): x and w (n,), each f32 or bf16 -> the int32 counts
+//   and per-block f32 slot masses (nblk, K, nbins+2), summed over blocks by
+//   the wrapper.
+// Slot layout per ladder as K1 (`hist_batched.cu`): slot 0 is x <= e_0
+// (with -inf), slot j is e_{j-1} < x <= e_j, slot nbins+1 is x > e_nbins
+// and NaN, exactly what the plain versions
+// `kernels/ref.py:cp_histogram_multi_ref` / `wcp_histogram_multi_ref`
+// compute ladder by ladder.
 //
 // Bound on an H100 SXM: one read of x (4 bytes per f32 element, 2 per
-// bf16): 512 MiB at n = 2^27 against 3.35 TB/s is 0.16 ms.  Per element and
-// distinct ladder the work is two compares, plus a binary search over the
-// shared-memory edges (8 steps at nbins = 128) for in-bracket elements.
+// bf16), and of w on the weighted leg: 512 MiB (1 GiB with f32 weights) at
+// n = 2^27 against 3.35 TB/s is 0.16 ms (0.32 ms).  Per element and
+// distinct ladder the work is two compares (and two selected adds of the
+// weight), plus a binary search over the shared-memory edges (8 steps at
+// nbins = 128) for in-bracket elements.
 //
-// Design:
+// Design, counting leg:
 // - a block holds G ladders (G in {1, 2, 4, 8, 16}, a template parameter:
 //   the smallest that covers K up to 16, halved while G ladders' edges and
 //   (nbins+2)-slot histograms overflow the 48 KB of shared memory a block
@@ -34,6 +42,26 @@
 // - the kernel only COMPARES against the realized edges; integer atomics
 //   flush each block's histograms into the zeroed output, so the counts do
 //   not depend on the order of blocks.
+// Design, weighted leg (the masses decide every narrowing step, so they are
+// summed in an order fixed by n and the launch shape alone, never with
+// float atomics):
+// - each ladder's slot-0 and top-slot masses go to per-thread registers
+//   beside the slot-0 count (the top mass is accumulated, not subtracted: a
+//   difference of f32 sums is not the sum);
+// - in-bracket elements go to per-warp f32 rows (one per ladder) in shared
+//   memory, grouped by (ladder, slot) with __match_any_sync as in K1's
+//   weighted leg: each lane takes the lowest ladder it is still inside per
+//   round, and the group's lowest lane sums the weights in lane order and
+//   is the row entry's only writer.  The loops are warp-uniform;
+// - the block sums its warps' rows in warp order and writes one partial per
+//   ladder; a repeated ladder copies its first twin's partial (the same
+//   elements and weights);
+// - the per-warp rows take G * (nbins+2) * 4 bytes per warp (66 KB for 8
+//   warps at G = 16, 128 bins): the block opts in past 48 KB, up to 227 KB,
+//   and the wrapper halves first the group, then the warps per block, until
+//   the block fits (8192 bins: one ladder, four warps);
+// - the wrapper picks the block count from n alone and reduces the partials
+//   over blocks in a fixed order.
 // Built without fast-math, so denormals are compared exactly (no flush).
 
 #include <cuda_bf16.h>
@@ -77,21 +105,27 @@ __device__ __forceinline__ void compare(const float (&v)[U], unsigned binned,
   }
 }
 
-// Slots v into each ladder whose bit is set in `mask`: slot = count(e < v)
-// over ladder j at e + j * nedges, known to lie in [1, nedges - 1].
+// slot of an in-bracket v in one ladder: count(e < v), known to lie in
+// [1, nedges - 1]
+__device__ __forceinline__ int search(float v, const float* e, int nedges) {
+  int s = 1, t = nedges - 1;  // invariant: e[s-1] < v <= e[t]
+  while (s < t) {
+    const int m = (s + t) >> 1;
+    if (e[m] < v) s = m + 1; else t = m;
+  }
+  return s;
+}
+
+// Slots v into each ladder whose bit is set in `mask` (ladder j at
+// e + j * nedges).
 __device__ __forceinline__ void slot_inside(float v, unsigned mask,
                                             const float* e, int* hist,
                                             int nedges) {
   while (mask) {
     const int j = __ffs(mask) - 1;
     mask &= mask - 1;
-    const float* ej = e + j * nedges;
-    int s = 1, t = nedges - 1;  // invariant: ej[s-1] < v <= ej[t]
-    while (s < t) {
-      const int m = (s + t) >> 1;
-      if (ej[m] < v) s = m + 1; else t = m;
-    }
-    atomicAdd(&hist[j * (nedges + 1) + s], 1);
+    atomicAdd(&hist[j * (nedges + 1) + search(v, e + j * nedges, nedges)],
+              1);
   }
 }
 
@@ -235,7 +269,249 @@ int launch(const void* x, const void* edges, void* cnt, long long n,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Weighted leg
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  return v;
+}
+
+// As `compare`, and each binned ladder's slot-0 and top-slot masses in
+// registers.  A lane with no element brings v = NaN and w = 0: it adds 0 to
+// a top mass and nothing elsewhere, and the block's element count (which
+// gives the top counts) does not include it.
+template <int G, int U>
+__device__ __forceinline__ void wcompare(const float (&v)[U],
+                                         const float (&wv)[U],
+                                         unsigned binned,
+                                         const float (&lo)[G],
+                                         const float (&hi)[G],
+                                         int (&below)[G], float (&mbelow)[G],
+                                         float (&mabove)[G],
+                                         unsigned (&inside)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) inside[u] = 0;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if (!((binned >> j) & 1u)) continue;  // uniform over the block
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool le_lo = v[u] <= lo[j];
+      const bool le_hi = v[u] <= hi[j];
+      below[j] += le_lo;
+      mbelow[j] += le_lo ? wv[u] : 0.f;
+      mabove[j] += le_hi ? 0.f : wv[u];
+      inside[u] |= (unsigned)(!le_lo && le_hi) << j;
+    }
+  }
+}
+
+// The warp's in-bracket step for one element per lane.  Round by round,
+// each lane takes the lowest ladder it is still inside and finds its slot
+// there; lanes with the same (ladder, slot) key form a group, whose lowest
+// lane adds the group's weights, summed in lane order, to that entry of the
+// warp's rows and the group's size to the block's counts.  The rounds are
+// as many as the most ladders one element of the warp is inside (one in a
+// narrow sweep), not as many as the ladders the warp meets.  Every lane of
+// the warp must call it.
+__device__ __forceinline__ void warp_inside(float v, float wv,
+                                            unsigned inside, const float* e,
+                                            int nedges, float* rows,
+                                            float* stage, int* hist,
+                                            int lane) {
+  const int nslots = nedges + 1;
+  if (!__any_sync(kFull, inside != 0)) return;  // uniform over the warp
+  stage[lane] = wv;
+  __syncwarp();
+  do {
+    int key = -1;
+    if (inside) {
+      const int j = __ffs(inside) - 1;
+      inside &= inside - 1;
+      key = j * nslots + search(v, e + j * nedges, nedges);
+    }
+    const unsigned grp = __match_any_sync(kFull, key);
+    if (key >= 0 && lane == __ffs(grp) - 1) {
+      float acc = 0.f;
+      for (unsigned m = grp; m; m &= m - 1) acc += stage[__ffs(m) - 1];
+      rows[key] += acc;
+      atomicAdd(&hist[key], __popc(grp));
+    }
+  } while (__any_sync(kFull, inside != 0));
+  __syncwarp();
+}
+
+template <typename T, typename W, int G>
+__global__ void __launch_bounds__(kThreads)
+whist_multi_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                   const float* __restrict__ edges, int* __restrict__ cnt,
+                   float* __restrict__ mass, long long n, int nladders,
+                   int nedges) {
+  extern __shared__ float smem[];
+  __shared__ int rep[G];  // ladder j is binned as ladder rep[j]
+  __shared__ int total;   // elements this block read
+  const int nslots = nedges + 1;
+  const int nwarps = blockDim.x >> 5;
+  const int first = blockIdx.y * G;
+  const int nl = min(G, nladders - first);
+  float* e = smem;                                  // G * nedges
+  float* rows = e + G * nedges;                     // nwarps * G * nslots
+  float* stage = rows + nwarps * G * nslots;        // nwarps * 32
+  int* hist = reinterpret_cast<int*>(stage + nwarps * 32);  // G * nslots
+  for (int i = threadIdx.x; i < nl * nedges; i += blockDim.x)
+    e[i] = edges[(long long)first * nedges + i];
+  for (int i = threadIdx.x; i < nwarps * G * nslots; i += blockDim.x)
+    rows[i] = 0.f;
+  for (int i = threadIdx.x; i < nl * nslots; i += blockDim.x) hist[i] = 0;
+  if (threadIdx.x == 0) total = 0;
+  __syncthreads();
+  if (threadIdx.x < nl) {
+    const int j = threadIdx.x;
+    int r = j;
+    for (int p = 0; p < j && r == j; ++p) {
+      bool same = true;
+      for (int s = 0; s < nedges && same; ++s)
+        same = e[p * nedges + s] == e[j * nedges + s];
+      if (same) r = p;
+    }
+    rep[j] = r;
+  }
+  __syncthreads();
+  unsigned binned = 0;  // bit j: ladder j exists and is the first of its kind
+  float lo[G], hi[G], mbelow[G], mabove[G];
+  int below[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const bool b = j < nl && rep[j] == j;
+    binned |= (unsigned)b << j;
+    lo[j] = b ? e[j * nedges] : 0.f;
+    hi[j] = b ? e[j * nedges + nedges - 1] : 0.f;
+    below[j] = 0;
+    mbelow[j] = 0.f;
+    mabove[j] = 0.f;
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* wrows = rows + warp * G * nslots;
+  float* wstage = stage + warp * 32;
+  int seen = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (; __all_sync(kFull, i + (kUnroll - 1) * stride < n);
+       i += kUnroll * stride) {
+    float v[kUnroll], wv[kUnroll];
+    unsigned inside[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      v[u] = to_f32(x[i + u * stride]);
+      wv[u] = to_f32(w[i + u * stride]);
+    }
+    wcompare<G, kUnroll>(v, wv, binned, lo, hi, below, mbelow, mabove,
+                         inside);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      warp_inside(v[u], wv[u], inside[u], e, nedges, wrows, wstage, hist,
+                  lane);
+    seen += kUnroll;
+  }
+  for (; __any_sync(kFull, i < n); i += stride) {
+    const bool valid = i < n;
+    const float v[1] = {valid ? to_f32(x[i]) : __int_as_float(0x7fc00000)};
+    const float wv[1] = {valid ? to_f32(w[i]) : 0.f};
+    unsigned inside[1];
+    wcompare<G, 1>(v, wv, binned, lo, hi, below, mbelow, mabove, inside);
+    warp_inside(v[0], wv[0], inside[0], e, nedges, wrows, wstage, hist,
+                lane);
+    seen += valid;
+  }
+
+  // the end slots, reduced in a fixed order; lane 0 is their only writer in
+  // the warp's rows (in-bracket slots lie in [1, nbins])
+  seen = warp_sum(seen);
+  if (lane == 0) atomicAdd(&total, seen);
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if (!((binned >> j) & 1u)) continue;
+    const int b = warp_sum(below[j]);
+    const float mb = warp_sum(mbelow[j]);
+    const float ma = warp_sum(mabove[j]);
+    if (lane == 0) {
+      if (b) atomicAdd(&hist[j * nslots], b);
+      wrows[j * nslots] = mb;
+      wrows[j * nslots + nslots - 1] = ma;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < nl && rep[threadIdx.x] == threadIdx.x) {
+    int* hj = hist + threadIdx.x * nslots;
+    int counted = 0;
+    for (int s = 0; s < nslots - 1; ++s) counted += hj[s];
+    hj[nslots - 1] = total - counted;  // x > e_nbins, or NaN
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < nl * nslots; k += blockDim.x) {
+    const int j = k / nslots;
+    const int s = k - j * nslots;
+    const int r = rep[j] * nslots + s;
+    if (hist[r]) atomicAdd(&cnt[(long long)(first + j) * nslots + s], hist[r]);
+    float m = 0.f;
+    for (int wp = 0; wp < nwarps; ++wp) m += rows[wp * G * nslots + r];
+    mass[((long long)blockIdx.x * nladders + first + j) * nslots + s] = m;
+  }
+}
+
+template <typename T, typename W, int G>
+int wlaunch_group(const void* x, const void* w, const void* edges, void* cnt,
+                  void* mass, long long n, int nladders, int nedges, int nblk,
+                  int warps, void* stream) {
+  const int nslots = nedges + 1;
+  const size_t smem = (size_t)(G * nedges + warps * G * nslots + warps * 32 +
+                               G * nslots) * 4;
+  const auto kernel = whist_multi_kernel<T, W, G>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)nblk, (unsigned)((nladders + G - 1) / G));
+  kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w),
+      static_cast<const float*>(edges), static_cast<int*>(cnt),
+      static_cast<float*>(mass), n, nladders, nedges);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename W>
+int wlaunch(const void* x, const void* w, const void* edges, void* cnt,
+            void* mass, long long n, int nladders, int nedges, int group,
+            int nblk, int warps, void* stream) {
+  switch (group) {
+    case 1: return wlaunch_group<T, W, 1>(x, w, edges, cnt, mass, n,
+                                          nladders, nedges, nblk, warps,
+                                          stream);
+    case 2: return wlaunch_group<T, W, 2>(x, w, edges, cnt, mass, n,
+                                          nladders, nedges, nblk, warps,
+                                          stream);
+    case 4: return wlaunch_group<T, W, 4>(x, w, edges, cnt, mass, n,
+                                          nladders, nedges, nblk, warps,
+                                          stream);
+    case 8: return wlaunch_group<T, W, 8>(x, w, edges, cnt, mass, n,
+                                          nladders, nedges, nblk, warps,
+                                          stream);
+    case 16: return wlaunch_group<T, W, 16>(x, w, edges, cnt, mass, n,
+                                            nladders, nedges, nblk, warps,
+                                            stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
 
 // `cnt` must be zeroed by the caller (the blocks add into it).  `group`
 // (1, 2, 4, 8 or 16) ladders share a block.  Returns the first non-zero
@@ -252,6 +528,23 @@ extern "C" int hist_multi_bf16(const void* x, const void* edges, void* cnt,
   return launch<__nv_bfloat16>(x, edges, cnt, n, nladders, nedges, group,
                                stream);
 }
+
+// Weighted leg, one entry per (x, w) type pair: `cnt` must be zeroed by the
+// caller; `mass` (nblk, K, nbins+2) is written whole; `group` (1, 2, 4, 8 or
+// 16) ladders and `warps` warps share a block.  Returns the first non-zero
+// CUDA error code of the set-up or the launch, else 0.
+#define WHIST_MULTI(XN, XT, WN, WT)                                          \
+  extern "C" int whist_multi_##XN##_##WN(                                    \
+      const void* x, const void* w, const void* edges, void* cnt,            \
+      void* mass, long long n, int nladders, int nedges, int group,          \
+      int nblk, int warps, void* stream) {                                   \
+    return wlaunch<XT, WT>(x, w, edges, cnt, mass, n, nladders, nedges,      \
+                           group, nblk, warps, stream);                      \
+  }
+WHIST_MULTI(f32, float, f32, float)
+WHIST_MULTI(f32, float, bf16, __nv_bfloat16)
+WHIST_MULTI(bf16, __nv_bfloat16, f32, float)
+WHIST_MULTI(bf16, __nv_bfloat16, bf16, __nv_bfloat16)
 
 extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

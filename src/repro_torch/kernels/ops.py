@@ -8,6 +8,10 @@ The rule, decided by the tensor alone:
   exactness certificates would lie (the reference's dtype rule);
 * a CPU tensor goes to the plain version.
 
+The weighted passes widen the rule to both operands: they take the kernel
+only when neither ``x`` nor ``w`` is f64 (f64 weights on f32 data must
+accumulate mass in f64, or the weighted certificates lie).
+
 Any other CUDA tensor reaches the kernel wrapper, which raises.  There is
 no fallback on error: a kernel that cannot run raises.
 """
@@ -21,6 +25,12 @@ from repro_torch.kernels import cp_objective, ref
 def uses_kernel(x: torch.Tensor) -> bool:
     """Whether a data pass over ``x`` runs a CUDA kernel (the rule above)."""
     return x.device.type == "cuda" and x.dtype != torch.float64
+
+
+def uses_kernel_weighted(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether a weighted data pass over ``x``/``w`` runs a CUDA kernel:
+    the rule of :func:`uses_kernel` on both operands."""
+    return uses_kernel(x) and w.dtype != torch.float64
 
 
 def fused_partials_batched(x: torch.Tensor, y: torch.Tensor):
@@ -70,3 +80,58 @@ def fused_histogram(x: torch.Tensor, edges: torch.Tensor):
     if uses_kernel(x):
         return cp_objective.cp_histogram(x, edges)
     return ref.cp_histogram_ref(x, edges, want_sums=False)
+
+
+def fused_weighted_partials_batched(x: torch.Tensor, w: torch.Tensor,
+                                    y: torch.Tensor):
+    """``(wsum_pos, wsum_neg, w_lt, w_le, n_lt, n_le)`` per row of
+    ``x``/``w`` (B, n) at the pivots ``y`` (B,)."""
+    if uses_kernel_weighted(x, w):
+        return cp_objective.wcp_partials_batched(x, w, y)
+    return ref.wcp_partials_batched_ref(x, w, y)
+
+
+def fused_weighted_histogram_batched(x: torch.Tensor, w: torch.Tensor,
+                                     edges: torch.Tensor):
+    """Row-wise weighted binned pass without per-slot sums: ``x``/``w``
+    (B, n), per-row realized edges ``(B, nbins+1)`` -> ``(cnt, wcnt,
+    None)``, each ``(B, nbins + 2)``."""
+    if uses_kernel_weighted(x, w):
+        return cp_objective.wcp_histogram_batched(x, w, edges)
+    return ref.wcp_histogram_batched_ref(x, w, edges, want_sums=False)
+
+
+def fused_weighted_partials_multi(x: torch.Tensor, w: torch.Tensor,
+                                  y: torch.Tensor):
+    """The six weighted partials of one shared ``x``/``w`` (n,) at each of
+    the pivots ``y`` (K,)."""
+    if uses_kernel_weighted(x, w):
+        return cp_objective.wcp_partials_multi(x, w, y)
+    return ref.wcp_partials_multi_ref(x, w, y)
+
+
+def fused_weighted_histogram_multi(x: torch.Tensor, w: torch.Tensor,
+                                   edges: torch.Tensor):
+    """Shared-x weighted binned pass without per-slot sums: ``x``/``w``
+    (n,) against K realized ladders ``(K, nbins+1)`` -> ``(cnt, wcnt,
+    None)``, each ``(K, nbins + 2)``."""
+    if uses_kernel_weighted(x, w):
+        return cp_objective.wcp_histogram_multi(x, w, edges)
+    return ref.wcp_histogram_multi_ref(x, w, edges, want_sums=False)
+
+
+def fused_weighted_partials(x: torch.Tensor, w: torch.Tensor, y):
+    """The K=1 view of :func:`fused_weighted_partials_multi`: a scalar
+    pivot."""
+    if uses_kernel_weighted(x, w):
+        return cp_objective.wcp_partials(x, w, y)
+    return ref.wcp_partials_ref(x, w, y)
+
+
+def fused_weighted_histogram(x: torch.Tensor, w: torch.Tensor,
+                             edges: torch.Tensor):
+    """The K=1 view of :func:`fused_weighted_histogram_multi`: one ladder
+    ``(nbins+1,)`` -> ``(cnt, wcnt, None)``, each ``(nbins + 2,)``."""
+    if uses_kernel_weighted(x, w):
+        return cp_objective.wcp_histogram(x, w, edges)
+    return ref.wcp_histogram_ref(x, w, edges, want_sums=False)

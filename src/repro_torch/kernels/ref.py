@@ -169,3 +169,111 @@ def cp_histogram_multi_ref(x: torch.Tensor, edges: torch.Tensor, *,
     cnt, bsum = zip(*(cp_histogram_ref(x, e, want_sums=want_sums)
                       for e in edges))
     return torch.stack(cnt), (torch.stack(bsum) if want_sums else None)
+
+
+# ---------------------------------------------------------------------------
+# Weighted leg: six weighted partials and the weighted histogram
+# ---------------------------------------------------------------------------
+
+
+def _waccum_dtype(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
+    # Weighted accumulation promotes BOTH operands, with the kernels' f32
+    # floor: f64 weights on f32 data accumulate mass in f64, so the
+    # either-f64 path stays exact as the counting leg's f64 path does.
+    return torch.promote_types(torch.promote_types(x.dtype, w.dtype),
+                               torch.float32)
+
+
+def _wpartials(d: torch.Tensor, w: torch.Tensor, dim: int):
+    """``(wsum_pos, wsum_neg, w_lt, w_le, n_lt, n_le)`` of ``d = x - y``.
+    ``where`` (not ``maximum``) as in the reference: an element whose
+    ``d`` is NaN adds nothing to any sum and counts nowhere."""
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+    lt, le = d < 0, d <= 0
+    wsum_pos = torch.sum(torch.where(d > 0, w * d, zero), dim=dim)
+    wsum_neg = torch.sum(torch.where(lt, -w * d, zero), dim=dim)
+    w_lt = torch.sum(torch.where(lt, w, zero), dim=dim)
+    w_le = torch.sum(torch.where(le, w, zero), dim=dim)
+    n_lt = torch.sum(lt, dim=dim, dtype=torch.int32)
+    n_le = torch.sum(le, dim=dim, dtype=torch.int32)
+    return wsum_pos, wsum_neg, w_lt, w_le, n_lt, n_le
+
+
+def wcp_partials_ref(x: torch.Tensor, w: torch.Tensor, y):
+    """Plain version of ``wcp_partials``: the six weighted partials of
+    ``x``/``w`` (n,) at the scalar pivot ``y`` — the weighted objective
+    terms ``sum w*(x-y)+`` and ``sum w*(y-x)+``, the masses below and at or
+    below the pivot, and the element counts (which drive the cap rule)."""
+    dt = _waccum_dtype(x, w)
+    x = x.reshape(-1).to(dt)
+    w = w.reshape(-1).to(dt)
+    y = torch.as_tensor(y, dtype=dt, device=x.device)
+    return _wpartials(x - y, w, dim=-1)
+
+
+def wcp_partials_batched_ref(x: torch.Tensor, w: torch.Tensor, y):
+    """Plain version of ``wcp_partials_batched``: ``x``/``w`` (B, n),
+    pivots ``y`` (B,); returns six (B,) tensors."""
+    dt = _waccum_dtype(x, w)
+    y = torch.as_tensor(y, dtype=dt, device=x.device).reshape(-1, 1)
+    return _wpartials(x.to(dt) - y, w.to(dt), dim=-1)
+
+
+def wcp_partials_multi_ref(x: torch.Tensor, w: torch.Tensor, y):
+    """Plain version of ``wcp_partials_multi``: one shared ``x``/``w`` (n,)
+    and pivots ``y`` (K,); returns six (K,) tensors.  One pivot at a time,
+    so no ``(K, n)`` tensor exists."""
+    dt = _waccum_dtype(x, w)
+    x = x.reshape(-1).to(dt)
+    w = w.reshape(-1).to(dt)
+    y = torch.as_tensor(y, dtype=dt, device=x.device).reshape(-1)
+    parts = [_wpartials(x - yj, w, dim=-1) for yj in y]
+    return tuple(torch.stack(p) for p in zip(*parts))
+
+
+def wcp_histogram_batched_ref(x: torch.Tensor, w: torch.Tensor,
+                              edges: torch.Tensor, *, want_sums: bool = True):
+    """Plain version of ``wcp_histogram_batched``: ``x``/``w`` (B, n),
+    per-row realized edges ``(B, nbins+1)``.  Returns ``(cnt, wcnt, wsum)``
+    of shape ``(B, nbins + 2)``: int32 counts per slot (layout in
+    :func:`searchsorted_slots`), the per-slot weight mass — always, it is
+    the weighted narrowing signal — and, with ``want_sums``, the per-slot
+    ``sum(w*x)`` (``None`` otherwise), both in the accumulate dtype."""
+    dt = _waccum_dtype(x, w)
+    x, w, edges = x.to(dt), w.to(dt), edges.to(dt)
+    b = x.shape[0]
+    nslots = edges.shape[-1] + 1
+    slot = searchsorted_slots(x, edges).to(torch.int64)
+    flat = (slot + torch.arange(b, device=x.device)[:, None] * nslots
+            ).reshape(-1)
+    cnt = torch.bincount(flat, minlength=b * nslots).reshape(b, nslots)
+
+    def per_slot(v):
+        return torch.zeros(b * nslots, dtype=dt, device=x.device).index_add_(
+            0, flat, v.reshape(-1)).reshape(b, nslots)
+
+    return (cnt.to(torch.int32), per_slot(w),
+            per_slot(w * x) if want_sums else None)
+
+
+def wcp_histogram_ref(x: torch.Tensor, w: torch.Tensor, edges: torch.Tensor,
+                      *, want_sums: bool = True):
+    """Single-array view of :func:`wcp_histogram_batched_ref`: ``x``/``w``
+    (n,), edges ``(nbins+1,)``; outputs ``(nbins + 2,)``."""
+    out = wcp_histogram_batched_ref(x.reshape(1, -1), w.reshape(1, -1),
+                                    edges.reshape(1, -1),
+                                    want_sums=want_sums)
+    return tuple(o[0] if o is not None else None for o in out)
+
+
+def wcp_histogram_multi_ref(x: torch.Tensor, w: torch.Tensor,
+                            edges: torch.Tensor, *, want_sums: bool = True):
+    """Plain version of ``wcp_histogram_multi``: one shared ``x``/``w``
+    (n,) binned against K realized ladders ``edges`` (K, nbins+1).
+    Returns ``(cnt, wcnt, wsum)`` of shape ``(K, nbins + 2)``.  One ladder
+    at a time (:func:`wcp_histogram_ref`), so no ``(K, n)`` tensor
+    exists."""
+    cnt, wcnt, wsum = zip(*(wcp_histogram_ref(x, w, e, want_sums=want_sums)
+                            for e in edges))
+    return (torch.stack(cnt), torch.stack(wcnt),
+            torch.stack(wsum) if want_sums else None)

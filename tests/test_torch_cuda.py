@@ -163,3 +163,193 @@ def test_strided_view_reaches_the_multi_kernels(cuda, method):
     res = selection.multi_order_statistic(x[::2], ks, method=method)
     assert cp_objective.LAUNCHES[kernel[method]] > 0
     assert torch.equal(res.value, torch.sort(x[::2]).values[ks - 1])
+
+
+# ---------------------------------------------------------------------------
+# the weighted legs K1w-K4w
+# ---------------------------------------------------------------------------
+
+WDTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+           (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)]
+
+
+def _int_weights(shape, seed, device):
+    """Integer weights 0..3 (exact in bf16 and in every f32 partial sum
+    here), with a run of zeros long enough to empty whole slots."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randint(0, 4, shape, generator=g, device=device).float()
+    w[..., 100:3000] = 0.0
+    return w
+
+
+def _dense_weights(shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=g, device=device) + 0.5
+
+
+@pytest.mark.parametrize("xdt,wdt", WDTYPES)
+@pytest.mark.parametrize("rows,n", [(1, 100_003), (7, 5000)])
+def test_weighted_histogram_kernel_equals_plain(cuda, xdt, wdt, rows, n):
+    x = _data(rows, n, rows, cuda).to(xdt)
+    w = _int_weights((rows, n), rows, cuda).to(wdt)
+    kinds = [(-3e38, 3e38), (-2.0, 2.0), (-1e-40, 1e-40), (-1e-3, 2e-3),
+             (0.25, float(np.nextafter(np.float32(0.25), np.float32(1)))),
+             (0.0, 0.0), (-1.0, 1.0)]
+    lo = torch.tensor([k[0] for k in kinds[:rows]], device=cuda)
+    hi = torch.tensor([k[1] for k in kinds[:rows]], device=cuda)
+    edges = ref.bin_edges(lo, hi, 128).contiguous()
+    cnt, wcnt, none = cp_objective.wcp_histogram_batched(x, w, edges)
+    want = ref.wcp_histogram_batched_ref(x, w, edges, want_sums=False)
+    assert none is None
+    assert torch.equal(cnt, want[0]) and torch.equal(wcnt, want[1])
+
+
+@pytest.mark.parametrize("xdt,wdt", WDTYPES)
+def test_weighted_partials_kernel_equals_plain(cuda, xdt, wdt):
+    x = _data(5, 70_001, 3, cuda).to(xdt)
+    w = _int_weights((5, 70_001), 3, cuda).to(wdt)
+    y = torch.tensor([0.0, 1e-3, -0.5, 1e-44, 3e38], device=cuda)
+    got = cp_objective.wcp_partials_batched(x, w, y)
+    want = ref.wcp_partials_batched_ref(x, w, y)
+    for g, v in zip(got[2:], want[2:]):  # masses (integers) and counts
+        assert torch.equal(g, v)
+    for g, v in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, v, rtol=1e-4, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("xdt,wdt", WDTYPES)
+@pytest.mark.parametrize("k,nbins", [(1, 128), (16, 128), (64, 128),
+                                     (3, 8192)])
+def test_weighted_multi_histogram_kernel_equals_plain(cuda, xdt, wdt, k,
+                                                      nbins):
+    """K = 16 at 128 bins opts in past 48 KB of shared memory (a mass row
+    per warp and ladder); 8192 bins run one ladder on four warps."""
+    x = _data(1, 100_003, k, cuda)[0].to(xdt)
+    w = _int_weights((100_003,), k, cuda).to(wdt)
+    edges = _ladders(k, cuda, nbins)
+    cnt, wcnt, _ = cp_objective.wcp_histogram_multi(x, w, edges)
+    want = ref.wcp_histogram_multi_ref(x, w, edges, want_sums=False)
+    assert torch.equal(cnt, want[0]) and torch.equal(wcnt, want[1])
+    one = cp_objective.wcp_histogram(x, w, edges[-1])
+    assert torch.equal(one[0], want[0][-1])
+    assert torch.equal(one[1], want[1][-1])
+
+
+@pytest.mark.parametrize("xdt,wdt", WDTYPES)
+@pytest.mark.parametrize("k", [1, 16, 64])
+def test_weighted_multi_partials_kernel_equals_plain(cuda, xdt, wdt, k):
+    x = _data(1, 100_003, k + 1, cuda)[0].to(xdt)
+    w = _int_weights((100_003,), k, cuda).to(wdt)
+    pivots = torch.tensor([0.0, 1e-3, -0.5, 1e-44, 3e38, 1.5, -2.0],
+                          device=cuda)
+    y = pivots[torch.arange(k, device=cuda) % pivots.numel()]
+    y[-1] = x[12345].float()  # a pivot on a data value
+    got = cp_objective.wcp_partials_multi(x, w, y)
+    want = ref.wcp_partials_multi_ref(x, w, y)
+    for g, v in zip(got[2:], want[2:]):
+        assert torch.equal(g, v)
+    for g, v in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, v, rtol=1e-4, atol=0, equal_nan=True)
+    # K = 1: the scalar view, and K2w's partials bit for bit
+    one = cp_objective.wcp_partials(x, w, y[-1])
+    rows = cp_objective.wcp_partials_batched(x[None, :], w[None, :], y[-1:])
+    for a, b in zip(one, rows):
+        assert torch.equal(a, b[0]) or (a.isnan() and b[0].isnan())
+
+
+def test_weighted_kernels_repeat_bit_for_bit(cuda):
+    """Dense random weights: no order of f32 sums is exact, so the masses
+    must come out of a fixed order — two launches, identical bits."""
+    n = 1 << 20
+    x = torch.randn(n, device=cuda)
+    w = _dense_weights(n, 5, cuda)
+    e1 = ref.bin_edges(x.min(), x.max(), 128).contiguous()
+    e16 = e1[None, :].expand(16, -1).contiguous()
+    y16 = torch.linspace(-2.0, 2.0, 16, device=cuda)
+    calls = {
+        "K1w": lambda: cp_objective.wcp_histogram_batched(
+            x[None], w[None], e1[None])[1],
+        "K2w": lambda: torch.stack(cp_objective.wcp_partials_batched(
+            x[None], w[None], y16[:1])[:4]),
+        "K3w": lambda: cp_objective.wcp_histogram_multi(x, w, e16)[1],
+        "K4w": lambda: torch.stack(cp_objective.wcp_partials_multi(
+            x, w, y16)[:4]),
+    }
+    for name, call in calls.items():
+        a, b = call(), call()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+    # against f64 (exact slot sums): within the rounding of the f32 sums
+    cnt, wcnt, _ = cp_objective.wcp_histogram_batched(x[None], w[None],
+                                                      e1[None])
+    exact = ref.wcp_histogram_batched_ref(x[None], w[None].double(),
+                                          e1[None], want_sums=False)[1]
+    torch.testing.assert_close(wcnt.double(), exact, rtol=1e-4, atol=0)
+
+
+def test_weighted_paths_launch_only_weighted_kernels(cuda):
+    n = 1 << 17
+    x = torch.randn(n, device=cuda)
+    w = torch.randint(0, 2, (n,), device=cuda).float()
+    xs, order = torch.sort(x)
+    cum = torch.cumsum(w[order].double(), 0)
+
+    def oracle(wk):
+        i = int(torch.searchsorted(cum, torch.tensor([wk], device=cuda,
+                                                     dtype=torch.float64)))
+        return float(xs[min(i, n - 1)])
+
+    W = float(w.sum())
+    for call, key, small in (
+            (lambda: selection.weighted_median(x, w),
+             "wcp_histogram_batched", False),
+            (lambda: selection.weighted_median(x[:5000], w[:5000]),
+             "wcp_partials_batched", True),
+            (lambda: selection.weighted_quantiles(x, w, [0.1, 0.5, 0.9]),
+             "wcp_histogram_multi", False),
+            (lambda: selection.weighted_quantiles(x, w, [0.1, 0.5, 0.9],
+                                                  method="cp"),
+             "wcp_partials_multi", False)):
+        cp_objective.reset_launches()
+        res = call()
+        launched = {k: v for k, v in cp_objective.LAUNCHES.items() if v}
+        assert launched == {key: int(res.iters.max())}, launched
+        if not small:
+            qs = [0.5] if res.value.dim() == 0 else [0.1, 0.5, 0.9]
+            want = [oracle(float(torch.tensor(q * W, dtype=torch.float32)))
+                    for q in qs]
+            assert res.value.reshape(-1).tolist() == want
+
+
+def test_weighted_f64_weights_take_the_plain_version(cuda):
+    """An f64 w on f32 x: no kernel runs (either-f64 rule) and the sweeps
+    are the plain version's 16 bins, the same SelectResult as on the CPU."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(1 << 17, generator=g)
+    w = torch.randint(1, 4, (1 << 17,), generator=g).double()
+    cp_objective.reset_launches()
+    got = selection.weighted_median(x.to(cuda), w.to(cuda), method="binned")
+    assert not any(cp_objective.LAUNCHES.values())
+    want = selection.weighted_median(x, w, method="binned")
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("method", ["binned", "cp"])
+def test_strided_views_reach_the_weighted_kernels(cuda, method):
+    x = torch.randn((3, 1 << 17), device=cuda)
+    w = torch.randint(0, 4, (3, 1 << 17), device=cuda).float()
+    kernel = {"binned": "wcp_histogram_batched",
+              "cp": "wcp_partials_batched"}[method]
+    cp_objective.reset_launches()
+    res = selection.weighted_median(x[0, ::2], w[0, ::2], method=method)
+    assert cp_objective.LAUNCHES[kernel] > 0
+    want = selection.weighted_median(x[0, ::2].cpu(), w[0, ::2].cpu(),
+                                     method="sort")
+    assert float(res.value) == float(want.value)
+    wks = torch.tensor([1.0, 777.0, 3e4], device=cuda)
+    res = selection.weighted_select_rows(x[:, : 1 << 16], w[:, : 1 << 16],
+                                         wks, method=method)
+    want = selection.weighted_select_rows(x[:, : 1 << 16].cpu(),
+                                          w[:, : 1 << 16].cpu(), wks.cpu(),
+                                          method="sort")
+    assert torch.equal(res.value.cpu(), want.value)
