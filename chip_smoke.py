@@ -65,9 +65,36 @@ Phases (any failure raises and the script exits non-zero):
    ``torch.cumsum`` + ``torch.searchsorted`` (the yardstick; the port
    never calls it).
 
-The line before the last two is ``{"kernels": [...]}`` (all eight
-kernels: K1-K4 and their weighted legs K1w-K4w); then the ``nvidia-smi``
-name and power limit; the last line is
+11. the per-slot sums legs K1s, K1ws (``hist_batched.cu``) and K3s, K3ws
+   (``hist_multi.cu``) against their plain versions at the K1 and K3
+   shapes above (``N_ODD``, K = 64, 8192 bins and the K = 1 views
+   included), x and w each f32 and bf16: counts, masses and sums bit for
+   bit on integer data whose slot totals stay below 2^24, with ±inf, NaN
+   and ±0 planted (NaN and inf slots equal with ``equal_nan``); on randn
+   with the SPECIALS each slot sum within ``f32_chain`` * 2^-24 of the f64
+   plain version (relative to the slot's sum of |values|); two launches
+   identical;
+12. ``method='binned_polish'`` at full size, each run's launch counts read
+   from zero and only the sums legs allowed to launch (one per sweep):
+   ``median`` of 2^27 f32 and bf16 (K1s), ``select_rows`` on (64, 2^20)
+   (K1s), 16 ``quantiles`` of 2^27 (K3s), ``weighted_median`` of 2^27 with
+   0/1 and with dense weights (K1ws), 16 ``weighted_quantiles`` (K3ws),
+   each against ``torch.sort`` or the sort + f64 cumulative-mass oracle;
+13. warm starts at full size: ``median(x, prior=cold)`` on unchanged x
+   (1 sweep, EXACT_HIT), a ``QuantileTracker(0.5)`` over 8 ticks of a 2^27
+   stream whose ticks each replace 2^-10 of the elements in place (every
+   tick's value against ``torch.sort``, 1 sweep per tick after the first),
+   ``reselect`` with 0/1 weights on the same stream, and
+   ``order_statistic(method='cp', prior=cold)`` at n = 50,000 (1 pass);
+14. timings: each sums leg against its bound, its no-sums twin and its
+   plain version; the polished median, rows batch and 16 quantiles against
+   their 'binned' twins with sweeps per answer; one warm tracker tick
+   against a cold median on the same tick's data, each with a stats /
+   loop / finalize breakdown.
+
+The line before the last two is ``{"kernels": [...]}`` (all twelve kernel
+legs: K1-K4, their weighted legs K1w-K4w, and the sums legs K1s, K1ws,
+K3s, K3ws); then the ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -716,10 +743,10 @@ def mass_oracle(xs, cum, wk):
     return torch.gather(xs, -1, idx).reshape(-1)
 
 
-def drive_weighted(sel, cpo, label, fn, check, expect_kernel):
-    """Run one weighted-path call with the launch counts read from zero;
-    ``check(res)`` raises unless the values are right.  Only weighted
-    kernels may launch, ``expect_kernel`` once per sweep or pass."""
+def drive_only(sel, cpo, label, fn, check, expect_kernel):
+    """Run one call with the launch counts read from zero; ``check(res)``
+    raises unless the values are right.  Only ``expect_kernel`` may launch,
+    once per sweep or pass."""
     cpo.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -742,6 +769,35 @@ def drive_weighted(sel, cpo, label, fn, check, expect_kernel):
         f"{ {k: launches[k] for k in moved} } first call "
         f"{wall * 1e3:.1f} ms")
     return launches
+
+
+def mass_interval(cpo, x, wd):
+    """A check of a dense-weight median: the answer's f64 masses below and
+    at or below it bracket wk = W/2 within ``delta``.  Returns the check
+    and the dict it fills with the margins."""
+    xs, cum = sorted_mass(x, wd)
+    W = float(cum[-1])
+    wk = W / 2
+    # delta: the kernel's chain (f32_chain) bounds the error of each slot
+    # mass and prefix, and the engine's torch.sum reductions (W, the
+    # finalize's mass below the bracket and at vnext) are each taken as no
+    # longer: four such chains, relative 2^-24 each, of the total W
+    delta = 4 * f32_chain(cpo, x.numel()) * 2.0 ** -24 * W
+    margins = {}
+
+    def in_interval(res):
+        v = torch.tensor([float(res.value)], device=DEVICE)
+        m_lt = float(cum[int(torch.searchsorted(xs, v, side="left")) - 1]) \
+            if bool(xs[0] < v) else 0.0
+        m_le = float(cum[int(torch.searchsorted(xs, v, side="right")) - 1])
+        margins.update(m_lt_minus_wk=m_lt - wk, m_le_minus_wk=m_le - wk,
+                       delta=delta)
+        if not (m_lt < wk + delta and m_le >= wk - delta):
+            raise AssertionError(f"dense weighted median outside the mass "
+                                 f"interval: M(<v)-wk {m_lt - wk}, "
+                                 f"M(<=v)-wk {m_le - wk}, delta {delta}")
+
+    return in_interval, margins
 
 
 def weighted_path(sel, cpo) -> dict:
@@ -768,78 +824,58 @@ def weighted_path(sel, cpo) -> dict:
     W01 = float(w01.sum())
     assert W01 < EXACT_TOTAL
     xs, cum = sorted_mass(x, w01)
-    add(drive_weighted(sel, cpo, "weighted_median n=2^27 f32, 0/1 weights "
-                       "(binned)", lambda: sel.weighted_median(x, w01),
-                       equal_to(mass_oracle(xs, cum, 0.5 * W01)),
-                       "wcp_histogram_batched"))
+    add(drive_only(sel, cpo, "weighted_median n=2^27 f32, 0/1 weights "
+                   "(binned)", lambda: sel.weighted_median(x, w01),
+                   equal_to(mass_oracle(xs, cum, 0.5 * W01)),
+                   "wcp_histogram_batched"))
     wk_cp = float(torch.tensor(W01 / 3, dtype=torch.float32))
-    add(drive_weighted(sel, cpo, "weighted_order_statistic n=2^27 "
-                       "method=cp, 0/1 weights",
-                       lambda: sel.weighted_order_statistic(
-                           x, w01, wk_cp, method="cp"),
-                       equal_to(mass_oracle(xs, cum, wk_cp)),
-                       "wcp_partials_batched"))
+    add(drive_only(sel, cpo, "weighted_order_statistic n=2^27 "
+                   "method=cp, 0/1 weights",
+                   lambda: sel.weighted_order_statistic(
+                       x, w01, wk_cp, method="cp"),
+                   equal_to(mass_oracle(xs, cum, wk_cp)),
+                   "wcp_partials_batched"))
     # 16 weighted quantiles: target masses q * W rounded once to f32
     wks16 = torch.tensor(QS16 * W01, dtype=torch.float32)
     want16 = mass_oracle(xs, cum, wks16)
-    add(drive_weighted(sel, cpo, "weighted_quantiles K=16 n=2^27, 0/1 "
-                       "weights (binned)",
-                       lambda: sel.weighted_quantiles(x, w01, QS16),
-                       equal_to(want16), "wcp_histogram_multi"))
-    add(drive_weighted(sel, cpo, "weighted_multi_order_statistic K=16 "
-                       "n=2^27 method=cp",
-                       lambda: sel.weighted_multi_order_statistic(
-                           x, w01, wks16.to(DEVICE), method="cp"),
-                       equal_to(want16), "wcp_partials_multi"))
+    add(drive_only(sel, cpo, "weighted_quantiles K=16 n=2^27, 0/1 "
+                   "weights (binned)",
+                   lambda: sel.weighted_quantiles(x, w01, QS16),
+                   equal_to(want16), "wcp_histogram_multi"))
+    add(drive_only(sel, cpo, "weighted_multi_order_statistic K=16 "
+                   "n=2^27 method=cp",
+                   lambda: sel.weighted_multi_order_statistic(
+                       x, w01, wks16.to(DEVICE), method="cp"),
+                   equal_to(want16), "wcp_partials_multi"))
     del xs, cum
 
     xsmall, wsmall = x[:N_SMALL].contiguous(), w01[:N_SMALL].contiguous()
     wsmall[0] = 1.0
     xs, cum = sorted_mass(xsmall, wsmall)
     wk_s = 0.5 * float(wsmall.sum())
-    add(drive_weighted(sel, cpo, f"weighted_median n={N_SMALL} auto (cp)",
-                       lambda: sel.weighted_median(xsmall, wsmall),
-                       equal_to(mass_oracle(xs, cum, wk_s)),
-                       "wcp_partials_batched"))
+    add(drive_only(sel, cpo, f"weighted_median n={N_SMALL} auto (cp)",
+                   lambda: sel.weighted_median(xsmall, wsmall),
+                   equal_to(mass_oracle(xs, cum, wk_s)),
+                   "wcp_partials_batched"))
 
     xb = x.to(torch.bfloat16)
     xs, cum = sorted_mass(xb, w01)
-    add(drive_weighted(sel, cpo, "weighted_median n=2^27 bf16 x, 0/1 "
-                       "weights (binned)", lambda: sel.weighted_median(xb, w01),
-                       equal_to(mass_oracle(xs, cum, 0.5 * W01)),
-                       "wcp_histogram_batched"))
+    add(drive_only(sel, cpo, "weighted_median n=2^27 bf16 x, 0/1 "
+                   "weights (binned)", lambda: sel.weighted_median(xb, w01),
+                   equal_to(mass_oracle(xs, cum, 0.5 * W01)),
+                   "wcp_histogram_batched"))
     del xb, xs, cum
 
     # dense weights, as in an IRLS step: no f32 sum of 2^27 masses is
     # exact, so the check is a mass interval around wk = W/2 (in f64)
     wd = dense_weights(N_BIG, 83)
-    xs, cum = sorted_mass(x, wd)
-    W = float(cum[-1])
-    wk = W / 2
-    # delta: the kernel's chain (f32_chain) bounds the error of each slot
-    # mass and prefix, and the engine's torch.sum reductions (W, the
-    # finalize's mass below the bracket and at vnext) are each taken as no
-    # longer: four such chains, relative 2^-24 each, of the total W
-    delta = 4 * f32_chain(cpo, N_BIG) * 2.0 ** -24 * W
-    margins = {}
+    in_interval, margins = mass_interval(cpo, x, wd)
 
-    def in_interval(res):
-        v = torch.tensor([float(res.value)], device=DEVICE)
-        m_lt = float(cum[int(torch.searchsorted(xs, v, side="left")) - 1]) \
-            if bool(xs[0] < v) else 0.0
-        m_le = float(cum[int(torch.searchsorted(xs, v, side="right")) - 1])
-        margins.update(m_lt_minus_wk=m_lt - wk, m_le_minus_wk=m_le - wk,
-                       delta=delta)
-        if not (m_lt < wk + delta and m_le >= wk - delta):
-            raise AssertionError(f"dense weighted median outside the mass "
-                                 f"interval: M(<v)-wk {m_lt - wk}, "
-                                 f"M(<=v)-wk {m_le - wk}, delta {delta}")
-
-    add(drive_weighted(sel, cpo, "weighted_median n=2^27 f32, dense weights "
-                       "(binned)", lambda: sel.weighted_median(x, wd),
-                       in_interval, "wcp_histogram_batched"))
+    add(drive_only(sel, cpo, "weighted_median n=2^27 f32, dense weights "
+                   "(binned)", lambda: sel.weighted_median(x, wd),
+                   in_interval, "wcp_histogram_batched"))
     log(f"  dense-weight median mass interval: {json.dumps(margins)}")
-    del xs, cum, wd, x, w01
+    del wd, x, w01, in_interval
 
     xr = torch.randn((ROWS, N_ROW), generator=gen(84), device=DEVICE)
     wr = torch.randint(0, 8, (ROWS, N_ROW), generator=gen(85),
@@ -848,11 +884,11 @@ def weighted_path(sel, cpo) -> dict:
     assert float(Wr.max()) < EXACT_TOTAL
     wks = (torch.rand(ROWS, generator=gen(86), device=DEVICE) * Wr).floor()
     xs, cum = sorted_mass(xr, wr)
-    add(drive_weighted(sel, cpo, "weighted_select_rows (64, 2^20), integer "
-                       "weights, per-row target masses",
-                       lambda: sel.weighted_select_rows(xr, wr, wks),
-                       equal_to(mass_oracle(xs, cum, wks[:, None])),
-                       "wcp_histogram_batched"))
+    add(drive_only(sel, cpo, "weighted_select_rows (64, 2^20), integer "
+                   "weights, per-row target masses",
+                   lambda: sel.weighted_select_rows(xr, wr, wks),
+                   equal_to(mass_oracle(xs, cum, wks[:, None])),
+                   "wcp_histogram_batched"))
     return total, margins
 
 
@@ -972,6 +1008,502 @@ def weighted_timings(sel, cpo, ref, obj) -> dict:
             ev.x, ev.k, s, cap, xmin, xmax, w=ev.w.to(ev.k.dtype)), reps=1,
             rounds=3)
         out[f"{label}_sweeps"] = int(s.iters.max())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the per-slot sums legs K1s, K1ws, K3s, K3ws; the polished and warm paths
+# ---------------------------------------------------------------------------
+
+def int_sparse_data(rows: int, n: int, seed: int) -> torch.Tensor:
+    """Integer-valued x: -4..4 at density 1/128, zeros elsewhere, with ±inf,
+    NaN and ±0.0 planted.  A slot's sum of |x| stays below 2^22 at
+    n = 2^27 (and of |w*x| with ``int_weights``, whose total stays below
+    2^23), so every f32 partial sum is exact in any order and the kernels'
+    sums must equal the plain versions' bit for bit."""
+    g = gen(seed)
+    v = torch.randint(-4, 5, (rows, n), generator=g, device=DEVICE).float()
+    x = v * (torch.rand((rows, n), generator=g, device=DEVICE) < 1 / 128)
+    sp = torch.tensor([float("inf"), float("-inf"), float("nan"), 0.0, -0.0],
+                      device=DEVICE)
+    pos = torch.randint(0, n, (rows, 6 * sp.numel()), generator=g,
+                        device=DEVICE)
+    x.scatter_(1, pos, sp.repeat(6).expand(rows, -1).contiguous())
+    return x
+
+
+class SumsCheck:
+    """Tallies of one sums leg's checks: the largest count / mass / sum
+    difference on integer data (it raises unless that is 0 outside NaN
+    slots), and on randn the largest error of a slot sum against the f64
+    plain version relative to the slot's sum of |values|, with its
+    bound."""
+
+    def __init__(self, name):
+        self.name = name
+        self.int_err = 0.0
+        self.rel = 0.0
+        self.bound = 0.0
+
+    def exact(self, got, want, label):
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"{self.name} counts differ from the plain "
+                                 f"version: {label}")
+        for g, v in zip(got[1:], want[1:]):
+            fin = torch.isfinite(v)
+            if bool(fin.any()):
+                self.int_err = max(self.int_err, float(
+                    (g[fin].double() - v[fin].double()).abs().max()))
+            torch.testing.assert_close(g, v, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{self.name} rows differ from "
+                                           f"the plain version: {label}")
+
+    def near(self, got, exact, scale, cnt, chain, label):
+        """``got`` against the f64 ``exact`` where both the sum and its
+        scale are finite f32 values (a slot holding ±inf, NaN or ±3e38
+        pairs has no f32 sum to hold).  Each of the slot's ``cnt`` f32
+        products w*x may round by half a denormal step, 2^-150, beyond the
+        relative chain bound."""
+        rtol = chain * 2.0 ** -24
+        ok = torch.isfinite(exact) & (scale < 1e38)
+        err = (got.double() - exact).abs()[ok]
+        sc = scale[ok]
+        if bool((err > rtol * sc + cnt[ok].double() * 2.0 ** -150).any()):
+            raise AssertionError(f"{self.name} sums outside {rtol:.3g} of "
+                                 f"the f64 sums: {label}")
+        nz = sc > 0
+        if bool(nz.any()):
+            self.rel = max(self.rel, float((err[nz] / sc[nz]).max()))
+        self.bound = max(self.bound, rtol)
+
+    def repeat(self, call, label):
+        a, b = call(), call()
+        if not all(same_bits(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{self.name}: two launches on the same "
+                                 f"input differ: {label}")
+
+    def result(self):
+        return {"max_abs_err": self.int_err, "randn_max_rel_err": self.rel,
+                "randn_rtol": self.bound}
+
+
+def f64_sums(plain, x, w, e):
+    """The f64 plain version's per-slot sums of w*x and of w*|x| (the
+    scale of their rounding), ``w`` None for the counting legs."""
+    xd = x.double()
+    wd = torch.ones_like(xd) if w is None else w.double()
+    return (plain(xd, wd, e, want_sums=True)[2],
+            plain(xd, wd * torch.sign(xd).nan_to_num(0.0), e,
+                  want_sums=True)[2].abs())
+
+
+def check_sums_rows(cpo, ref) -> tuple:
+    """K1s and K1ws against their plain versions at the K1 shapes."""
+    kinds = bracket_kinds()
+    c1s, c1ws = SumsCheck("K1s"), SumsCheck("K1ws")
+    for rows, n, seed in K1_SHAPES:
+        ladders = ([[kinds[i % len(kinds)] for i in range(rows)]]
+                   if rows > 1 else [[kind] for kind in kinds])
+        xi = int_sparse_data(rows, n, seed + 100)
+        wi = int_weights((rows, n), seed + 101)
+        for ladder in ladders:
+            e = edge_ladders(ref, ladder, 128)
+            for xdt in (torch.float32, torch.bfloat16):
+                x = xi.to(xdt)
+                c1s.exact(cpo.cp_histogram_batched(x, e, want_sums=True),
+                          ref.cp_histogram_batched_ref(x, e, want_sums=True),
+                          f"({rows}, {n}) {xdt} {ladder[:3]}")
+            for xdt, wdt in WDTYPES:
+                x, w = xi.to(xdt), wi.to(wdt)
+                c1ws.exact(cpo.wcp_histogram_batched(x, w, e, want_sums=True),
+                           ref.wcp_histogram_batched_ref(x, w, e,
+                                                         want_sums=True),
+                           f"({rows}, {n}) {xdt} {wdt} {ladder[:3]}")
+        del xi, wi
+        x = special_data(rows, n, seed + 102)
+        wd = dense_weights((rows, n), seed + 103)
+        chain = f32_chain(cpo, n)
+        plain = ref.wcp_histogram_batched_ref
+        for ladder in ladders:
+            e = edge_ladders(ref, ladder, 128)
+            got = cpo.cp_histogram_batched(x, e, want_sums=True)
+            c1s.near(got[1], *f64_sums(plain, x, None, e), got[0], chain,
+                     f"({rows}, {n}) {ladder[:3]}")
+            got = cpo.wcp_histogram_batched(x, wd, e, want_sums=True)
+            c1ws.near(got[2], *f64_sums(plain, x, wd, e), got[0], chain,
+                      f"({rows}, {n}) {ladder[:3]}")
+            c1s.repeat(lambda: cpo.cp_histogram_batched(x, e, want_sums=True),
+                       f"({rows}, {n})")
+            c1ws.repeat(lambda: cpo.wcp_histogram_batched(x, wd, e,
+                                                          want_sums=True),
+                        f"({rows}, {n})")
+        del x, wd
+    log(f"K1s/K1ws hist_batched sums legs == plain version: counts, masses "
+        f"and sums bit for bit on integer data with inf/NaN/±0 (x and w "
+        f"each f32 and bf16), randn sums within {c1s.bound:.3g} of f64 "
+        f"(worst {c1s.rel:.3g} / {c1ws.rel:.3g} of the slot's |sum|), two "
+        f"launches identical, (rows, n) {[s[:2] for s in K1_SHAPES]}")
+    return c1s.result(), c1ws.result()
+
+
+def check_sums_multi(cpo, ref) -> tuple:
+    """K3s and K3ws against their plain versions at the K3 shapes."""
+    kinds = bracket_kinds()
+    c3s, c3ws = SumsCheck("K3s"), SumsCheck("K3ws")
+    cases = ((N_BIG, 121, [("16 identical", [kinds[1]] * 16, 128),
+                           ("5 kinds cycled over 16",
+                            [kinds[j % 5] for j in range(16)], 128)]),
+             (N_ODD, 122, [("K=64", [kinds[j % 5] for j in range(64)], 128),
+                           ("K=3 at 8192 bins", [kinds[j] for j in range(3)],
+                            8192)]))
+    for n, seed, ladders in cases:
+        xi = int_sparse_data(1, n, seed)[0]
+        wi = int_weights((n,), seed + 1)
+        for label, ladder, nbins in ladders:
+            e = edge_ladders(ref, ladder, nbins)
+            for xdt in (torch.float32, torch.bfloat16):
+                x = xi.to(xdt)
+                c3s.exact(cpo.cp_histogram_multi(x, e, want_sums=True),
+                          ref.cp_histogram_multi_ref(x, e, want_sums=True),
+                          f"n={n} {xdt} {label}")
+            for xdt, wdt in WDTYPES:
+                x, w = xi.to(xdt), wi.to(wdt)
+                c3ws.exact(cpo.wcp_histogram_multi(x, w, e, want_sums=True),
+                           ref.wcp_histogram_multi_ref(x, w, e,
+                                                       want_sums=True),
+                           f"n={n} {xdt} {wdt} {label}")
+        if n == N_ODD:
+            for kind in kinds:  # K = 1 through the scalar views
+                e1 = edge_ladders(ref, [kind], 128)[0]
+                c3s.exact(cpo.cp_histogram(xi, e1, want_sums=True),
+                          ref.cp_histogram_ref(xi, e1, want_sums=True),
+                          f"n={n} K=1 {kind}")
+                c3ws.exact(cpo.wcp_histogram(xi, wi, e1, want_sums=True),
+                           ref.wcp_histogram_ref(xi, wi, e1, want_sums=True),
+                           f"n={n} K=1 {kind}")
+        del xi, wi
+        x = special_data(1, n, seed + 2)[0]
+        wd = dense_weights(n, seed + 3)
+        chain = f32_chain(cpo, n)
+        plain = ref.wcp_histogram_multi_ref
+        for label, ladder, nbins in ladders:
+            e = edge_ladders(ref, ladder, nbins)
+            got = cpo.cp_histogram_multi(x, e, want_sums=True)
+            c3s.near(got[1], *f64_sums(plain, x, None, e), got[0], chain,
+                     f"n={n} {label}")
+            got = cpo.wcp_histogram_multi(x, wd, e, want_sums=True)
+            c3ws.near(got[2], *f64_sums(plain, x, wd, e), got[0], chain,
+                      f"n={n} {label}")
+            c3s.repeat(lambda: cpo.cp_histogram_multi(x, e, want_sums=True),
+                       f"n={n} {label}")
+            c3ws.repeat(lambda: cpo.wcp_histogram_multi(x, wd, e,
+                                                        want_sums=True),
+                        f"n={n} {label}")
+        del x, wd
+    log(f"K3s/K3ws hist_multi sums legs == plain version: counts, masses and "
+        f"sums bit for bit on integer data with inf/NaN/±0 at n=2^27 K=16 "
+        f"(identical and cycled ladders), n={N_ODD} K=64, K=3 at 8192 bins "
+        f"and K=1 (cp_histogram / wcp_histogram), x and w each f32 and bf16; "
+        f"randn sums within {c3s.bound:.3g} of f64 (worst {c3s.rel:.3g} / "
+        f"{c3ws.rel:.3g}), two launches identical")
+    return c3s.result(), c3ws.result()
+
+
+def polish_path(sel, cpo) -> dict:
+    """``method='binned_polish'`` on every leg at full size: only the sums
+    legs may launch, one launch per sweep, every value against its
+    oracle."""
+    total = dict.fromkeys(cpo.LAUNCHES, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    def equal_to(want):
+        def check(res):
+            if not torch.equal(res.value.float().reshape(-1),
+                               want.float().reshape(-1)):
+                raise AssertionError("value differs from the oracle")
+        return check
+
+    x = torch.randn(N_BIG, generator=gen(131), device=DEVICE)
+    xs = torch.sort(x).values
+    k_med = (N_BIG + 1) // 2
+    add(drive_only(sel, cpo, "median n=2^27 f32 (binned_polish)",
+                   lambda: sel.median(x, method="binned_polish"),
+                   equal_to(xs[k_med - 1]), "cp_histogram_batched_sums"))
+    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE).long()
+    add(drive_only(sel, cpo, "quantiles K=16 n=2^27 f32 (binned_polish)",
+                   lambda: sel.quantiles(x, QS16, method="binned_polish"),
+                   equal_to(xs[ks - 1]), "cp_histogram_multi_sums"))
+    del xs
+    xb = x.to(torch.bfloat16)
+    add(drive_only(sel, cpo, "median n=2^27 bf16 (binned_polish)",
+                   lambda: sel.median(xb, method="binned_polish"),
+                   equal_to(torch.sort(xb).values[k_med - 1]),
+                   "cp_histogram_batched_sums"))
+    del xb
+
+    xr = torch.randn((ROWS, N_ROW), generator=gen(132), device=DEVICE)
+    kr = torch.randint(1, N_ROW + 1, (ROWS,), generator=gen(133),
+                       device=DEVICE)
+    want = torch.gather(torch.sort(xr, dim=1).values, 1,
+                        (kr - 1)[:, None])[:, 0]
+    add(drive_only(sel, cpo, "select_rows (64, 2^20) per-row k "
+                   "(binned_polish)",
+                   lambda: sel.select_rows(xr, kr, method="binned_polish"),
+                   equal_to(want), "cp_histogram_batched_sums"))
+    del xr
+
+    w01 = (torch.rand(N_BIG, generator=gen(134), device=DEVICE)
+           < 1 / 16).float()
+    W01 = float(w01.sum())
+    assert W01 < EXACT_TOTAL
+    xs, cum = sorted_mass(x, w01)
+    add(drive_only(sel, cpo, "weighted_median n=2^27, 0/1 weights "
+                   "(binned_polish)",
+                   lambda: sel.weighted_median(x, w01, method="binned_polish"),
+                   equal_to(mass_oracle(xs, cum, 0.5 * W01)),
+                   "wcp_histogram_batched_sums"))
+    wks16 = torch.tensor(QS16 * W01, dtype=torch.float32)
+    add(drive_only(sel, cpo, "weighted_quantiles K=16 n=2^27, 0/1 weights "
+                   "(binned_polish)",
+                   lambda: sel.weighted_quantiles(x, w01, QS16,
+                                                  method="binned_polish"),
+                   equal_to(mass_oracle(xs, cum, wks16)),
+                   "wcp_histogram_multi_sums"))
+    del xs, cum, w01
+    wd = dense_weights(N_BIG, 135)
+    in_interval, margins = mass_interval(cpo, x, wd)
+    add(drive_only(sel, cpo, "weighted_median n=2^27, dense weights "
+                   "(binned_polish)",
+                   lambda: sel.weighted_median(x, wd, method="binned_polish"),
+                   in_interval, "wcp_histogram_batched_sums"))
+    log(f"  polished dense-weight median mass interval: "
+        f"{json.dumps(margins)}")
+    return total
+
+
+def warm_path(sel, cpo, stream) -> dict:
+    """Warm starts at full size: an unchanged prior, a tracked stream and
+    the cp leg's first pivot."""
+    out = {}
+    x = torch.randn(N_BIG, generator=gen(141), device=DEVICE)
+    k = int(sel.ranks_from_quantiles(0.5, N_BIG))
+    cold = sel.median(x)
+    cpo.reset_launches()
+    warm = sel.median(x, prior=cold)
+    torch.cuda.synchronize()
+    launched = {kk: v for kk, v in cpo.LAUNCHES.items() if v}
+    if not (int(warm.iters) == 1 and int(warm.status) == sel.EXACT_HIT
+            and launched == {"cp_histogram_batched": 1}
+            and float(warm.value) == float(cold.value)
+            == float(torch.sort(x).values[(N_BIG + 1) // 2 - 1])):
+        raise AssertionError(f"median with an unchanged prior: iters "
+                             f"{int(warm.iters)} status {int(warm.status)} "
+                             f"launches {launched}")
+    log(f"median n=2^27 with prior=cold on unchanged x: 1 sweep, EXACT_HIT, "
+        f"launches {launched}")
+
+    # a sliding-window sensor feed: each tick replaces 2^-10 of the
+    # elements, chosen by a seeded generator, with fresh draws, in place
+    g = gen(142)
+    w01 = (torch.rand(N_BIG, generator=gen(143), device=DEVICE)
+           < 1 / 16).float()
+    tracker = stream.QuantileTracker(0.5)
+    statuses, launches = [], dict.fromkeys(cpo.LAUNCHES, 0)
+    wprior, wsweeps = None, []
+    for tick in range(8):
+        if tick:
+            idx = torch.randint(0, N_BIG, (N_BIG >> 10,), generator=g,
+                                device=DEVICE)
+            x[idx] = torch.randn(N_BIG >> 10, generator=g, device=DEVICE)
+        prior_before = tracker.prior
+        cpo.reset_launches()
+        res = tracker.update(x)
+        torch.cuda.synchronize()
+        for kk, v in cpo.LAUNCHES.items():
+            launches[kk] += v
+        statuses.append(int(res.status))
+        if float(res.value) != float(torch.sort(x).values[k - 1]):
+            raise AssertionError(f"tracker tick {tick}: value differs from "
+                                 f"torch.sort")
+        # reselect with weights on the same stream
+        xs, cum = sorted_mass(x, w01)
+        wk = 0.5 * float(cum[-1])
+        wres, wprior = stream.reselect(x, wk, weights=w01, prior=wprior)
+        wsweeps.append(int(wres.iters))
+        if float(wres.value) != float(mass_oracle(xs, cum, wk)[0]):
+            raise AssertionError(f"reselect tick {tick}: value differs from "
+                                 f"the sort + f64 cumulative-mass oracle")
+        del xs, cum
+    sweeps = tracker.sweeps
+    if sel.NOT_CONVERGED in statuses or any(s != 1 for s in sweeps[1:]):
+        raise AssertionError(f"tracker: sweeps {sweeps} statuses {statuses}")
+    log(f"QuantileTracker(0.5) over 8 ticks of a 2^27 stream (2^-10 "
+        f"replaced per tick): sweeps {sweeps} statuses {statuses}; "
+        f"weighted reselect sweeps {wsweeps}; launches "
+        f"{ {kk: v for kk, v in launches.items() if v} }")
+    out.update(tracker_sweeps=sweeps, tracker_statuses=statuses,
+               reselect_weighted_sweeps=wsweeps)
+
+    xsmall = x[:N_SMALL].contiguous()
+    k_s = N_SMALL // 3
+    cold_s = sel.order_statistic(xsmall, k_s, method="cp")
+    cpo.reset_launches()
+    warm_s = sel.order_statistic(xsmall, k_s, method="cp", prior=cold_s)
+    torch.cuda.synchronize()
+    want = float(torch.sort(xsmall).values[k_s - 1])
+    if not (float(warm_s.value) == float(cold_s.value) == want
+            and int(warm_s.iters) == 1
+            and int(warm_s.status) == sel.EXACT_HIT):
+        raise AssertionError(f"cp warm start: iters {int(warm_s.iters)} "
+                             f"status {int(warm_s.status)}")
+    log(f"order_statistic n={N_SMALL} method=cp prior=cold: 1 pass "
+        f"(cold {int(cold_s.iters)}), EXACT_HIT, launches "
+        f"{ {kk: v for kk, v in cpo.LAUNCHES.items() if v} }")
+
+    # kept for the timings: the last tick's data and the prior before it
+    out["_tick"] = (x, prior_before)
+    return out
+
+
+def sums_timings(sel, cpo, ref, obj, tick) -> dict:
+    """The sums legs beside their bounds, their no-sums twins and their
+    plain versions; polished answers against 'binned'; a warm tracker
+    tick against a cold median on the same data."""
+    out = {}
+    x = torch.randn(N_BIG, generator=gen(151), device=DEVICE)
+    wd = dense_weights(N_BIG, 152)
+    x2, w2 = x[None, :], wd[None, :]
+    steps = 8  # ceil(log2(129))
+    e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].contiguous()
+    e3 = ref.bin_edges(torch.tensor(-1e-3, device=DEVICE),
+                       torch.tensor(2e-3, device=DEVICE), 128)[None, :]
+    cnt, _ = cpo.cp_histogram_batched(x2, e1)
+    inside = int(N_BIG - cnt[0, 0] - cnt[0, -1])
+    outs = 2 * cnt.numel() * 4
+    for key, fn, plain, twin, nbytes, ops in (
+            ("k1s", lambda e: cpo.cp_histogram_batched(x2, e, want_sums=True),
+             lambda: ref.cp_histogram_batched_ref(x2, e1, want_sums=True),
+             lambda: cpo.cp_histogram_batched(x2, e1),
+             N_BIG * 4 + e1.numel() * 4 + outs,
+             # compares and an end-slot add per element, a search and an
+             # add inside
+             3 * N_BIG + inside * (steps + 1)),
+            ("k1ws", lambda e: cpo.wcp_histogram_batched(x2, w2, e,
+                                                         want_sums=True),
+             lambda: ref.wcp_histogram_batched_ref(x2, w2, e1,
+                                                   want_sums=True),
+             lambda: cpo.wcp_histogram_batched(x2, w2, e1),
+             N_BIG * 8 + e1.numel() * 4 + outs + cnt.numel() * 4,
+             # + the product and a second add per element
+             5 * N_BIG + inside * (steps + 2))):
+        out[key] = dict(
+            ms=cuda_ms(lambda: fn(e1), reps=20),
+            narrow_ms=cuda_ms(lambda: fn(e3), reps=20),
+            twin_ms=cuda_ms(twin, reps=20),
+            plain_ms=cuda_ms(plain, reps=2, rounds=3),
+            bound=bound(nbytes, ops))
+    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
+    e16 = e1.expand(16, -1).contiguous()
+    cnt16, _ = cpo.cp_histogram_multi(x, e16)
+    cum = torch.cumsum(cnt16[:, :-1], dim=-1, dtype=torch.int32)
+    yl, yr, *_ = sel.binned_descent_step(cum, e16, e16[:, 0], e16[:, -1], ks)
+    e2 = ref.bin_edges(yl, yr, 128).contiguous()
+    cnt2, _ = cpo.cp_histogram_multi(x, e2)
+    for label, e, c in (("first", e16, cnt16), ("narrow", e2, cnt2)):
+        nbytes, ops = k3_work(x, e, c)
+        distinct = len({r.numpy().tobytes() for r in e.cpu()})
+        out[f"k3s_{label}"] = dict(
+            ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, e, want_sums=True),
+                       reps=20),
+            twin_ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, e), reps=20),
+            plain_ms=cuda_ms(lambda: ref.cp_histogram_multi_ref(
+                x, e, want_sums=True), reps=1, rounds=3),
+            # + the sums output and two selected adds per element and
+            # distinct ladder
+            bound=bound(nbytes + c.numel() * 4, ops + 2 * N_BIG * distinct),
+            distinct_ladders=distinct)
+        out[f"k3ws_{label}"] = dict(
+            ms=cuda_ms(lambda: cpo.wcp_histogram_multi(x, wd, e,
+                                                       want_sums=True),
+                       reps=20),
+            twin_ms=cuda_ms(lambda: cpo.wcp_histogram_multi(x, wd, e),
+                            reps=20),
+            plain_ms=cuda_ms(lambda: ref.wcp_histogram_multi_ref(
+                x, wd, e, want_sums=True), reps=1, rounds=3),
+            # + w read once, masses and sums out, a product per element and
+            # four selected adds per element and distinct ladder
+            bound=bound(nbytes + N_BIG * 4 + 2 * c.numel() * 4,
+                        ops + N_BIG + 4 * N_BIG * distinct),
+            distinct_ladders=distinct)
+
+    # the polished multi-k first sweep: every target's ladder spans
+    # [min, max] but centres half its edges on its own seed cut, so the 16
+    # ladders are distinct and every element lies inside all 16
+    ev = obj.SharedEvaluator(x, ks)
+    s0, xmin, xmax, kk, _, xmean = sel._seed_state(ev)
+    cut0 = sel._seed_cut(ev, kk, xmin, xmax, xmean)
+    bad = ~torch.isfinite(cut0) | (cut0 <= s0.yL) | (cut0 >= s0.yR)
+    tp = torch.where(bad, 0.5 * (s0.yL + s0.yR), cut0)
+    ep = sel.polish_edges(s0.yL, s0.yR, tp, 128).contiguous()
+    cntp, _ = cpo.cp_histogram_multi(x, ep)
+    nbytes, ops = k3_work(x, ep, cntp)
+    distinct = len({r.numpy().tobytes() for r in ep.cpu()})
+    out["k3s_polish_first"] = dict(
+        ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, ep, want_sums=True),
+                   reps=5),
+        twin_ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, ep), reps=5),
+        bound=bound(nbytes + cntp.numel() * 4, ops + 2 * N_BIG * distinct),
+        distinct_ladders=distinct)
+    cap = sel._default_cap_rows(N_BIG)
+    for tag, polish in (("binned", False), ("polish", True)):
+        out[f"quantiles_{tag}_loop_ms"] = cuda_ms(
+            lambda: sel.binned_loop_batched(ev, nbins=128, cap=cap,
+                                            polish=polish), reps=1, rounds=3)
+        s, xmin, xmax = sel.binned_loop_batched(ev, nbins=128, cap=cap,
+                                                polish=polish)
+        out[f"quantiles_{tag}_finalize_ms"] = cuda_ms(
+            lambda: sel._finalize_shared(ev.x, ev.k, s, cap, xmin, xmax),
+            reps=1, rounds=3)
+    del ev
+
+    # polished answers against 'binned', with sweeps per answer
+    xr = torch.randn((ROWS, N_ROW), generator=gen(153), device=DEVICE)
+    kr = torch.randint(1, N_ROW + 1, (ROWS,), generator=gen(154),
+                       device=DEVICE)
+    for label, call in (
+            ("median", lambda m: sel.median(x, method=m)),
+            ("rows", lambda m: sel.select_rows(xr, kr, method=m)),
+            ("quantiles", lambda m: sel.quantiles(x, QS16, method=m))):
+        for m in ("binned", "binned_polish"):
+            tag = f"{label}_{'polish' if m == 'binned_polish' else 'binned'}"
+            out[f"{tag}_ms"] = cuda_ms(lambda: call(m), reps=1,
+                                       rounds=3 if label == "quantiles"
+                                       else 5)
+            out[f"{tag}_sweeps"] = int(call(m).iters.max())
+    del xr
+
+    # one warm tracker tick against a cold median on the same tick's data
+    xt, prior = tick
+    k = int(sel.ranks_from_quantiles(0.5, N_BIG))
+    out["tick_warm_ms"] = cuda_ms(lambda: sel.quantile(xt, 0.5, prior=prior),
+                                  reps=1, rounds=5)
+    out["tick_cold_ms"] = cuda_ms(lambda: sel.quantile(xt, 0.5), reps=1,
+                                  rounds=5)
+    cap = sel._default_cap(N_BIG)
+    for tag, pr in (("tick_warm", prior), ("tick_cold", None)):
+        ev = obj.RowsEvaluator(xt[None, :], k)
+        out[f"{tag}_stats_ms"] = cuda_ms(ev.init_stats, reps=1, rounds=5)
+        out[f"{tag}_loop_ms"] = cuda_ms(lambda: sel.binned_loop_batched(
+            ev, nbins=128, cap=cap, prior=pr), reps=1, rounds=5)
+        s, xmin, xmax = sel.binned_loop_batched(ev, nbins=128, cap=cap,
+                                                prior=pr)
+        out[f"{tag}_finalize_ms"] = cuda_ms(lambda: sel._finalize_rows(
+            xt[None, :], ev.k, s, cap, xmin, xmax), reps=1, rounds=5)
+        out[f"{tag}_sweeps"] = int(s.iters.max())
+        out[f"{tag}_certified"] = bool(s.found_exact.all())
     return out
 
 
@@ -1132,6 +1664,7 @@ def main() -> None:
                          "torch.cuda.is_available() is false")
     from repro_torch.core import objective as obj
     from repro_torch.core import selection as sel
+    from repro_torch.core import stream
     from repro_torch.kernels import _build
     from repro_torch.kernels import cp_objective as cpo
     from repro_torch.kernels import ref
@@ -1187,6 +1720,26 @@ def main() -> None:
         + json.dumps(tmm))
     log("weighted timings (ms, " + name + ", " + smi + "): "
         + json.dumps(tw))
+
+    t0 = time.perf_counter()
+    s_checks = [*check_sums_rows(cpo, ref), *check_sums_multi(cpo, ref)]
+    log(f"sums-leg checks took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    polished = polish_path(sel, cpo)
+    warm = warm_path(sel, cpo, stream)
+    tick = warm.pop("_tick")
+    log(f"polished and warm paths took {time.perf_counter() - t0:.1f} s; "
+        f"polish launches { {k: v for k, v in polished.items() if v} }")
+    for key in ("cp_histogram_batched_sums", "cp_histogram_multi_sums",
+                "wcp_histogram_batched_sums", "wcp_histogram_multi_sums"):
+        if polished[key] == 0:
+            raise AssertionError(f"{key} never launched on its main path")
+    t0 = time.perf_counter()
+    ts = sums_timings(sel, cpo, ref, obj, tick)
+    del tick
+    log(f"polish/warm timings took {time.perf_counter() - t0:.1f} s")
+    log("polish and warm timings (ms, " + name + ", " + smi + "): "
+        + json.dumps({**ts, **warm}))
 
     kernels = [
         {"name": "hist_batched (K1)", "route": "cuda",
@@ -1278,6 +1831,46 @@ def main() -> None:
                        narrow_sweep_bound_ms=tw["k3w_narrow"]["bound"][0],
                        narrow_sweep_distinct_ladders=tw["k3w_narrow"][
                            "distinct_ladders"])
+        kernels.append(row)
+    sums_rows = (
+        ("shist_batched (K1s)", "hist_batched.cu", 217,
+         "cp_histogram_batched_sums", "k1s",
+         "(1, 2^27) f32, 128 bins, first-sweep edges, counts and sums of x"),
+        ("wshist_batched (K1ws)", "hist_batched.cu", 217,
+         "wcp_histogram_batched_sums", "k1ws",
+         "(1, 2^27) f32 x and dense f32 w, 128 bins, first-sweep edges, "
+         "counts, masses and sums of w*x"),
+        ("shist_multi (K3s)", "hist_multi.cu", 197, "cp_histogram_multi_sums",
+         "k3s_first", "(2^27,) f32, K=16 identical first-sweep ladders, 128 "
+         "bins, counts and sums of x"),
+        ("wshist_multi (K3ws)", "hist_multi.cu", 197,
+         "wcp_histogram_multi_sums", "k3ws_first",
+         "(2^27,) f32 x and dense f32 w, K=16 identical first-sweep ladders, "
+         "128 bins, counts, masses and sums of w*x"))
+    for (kname, src, line, key, tkey, shape), chk in zip(sums_rows,
+                                                         s_checks):
+        t = ts[tkey]
+        row = {"name": kname, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{src}",
+               "replaces": f"src/repro/kernels/cp_objective.py:{line}",
+               "replaces_leg": "src/repro/kernels/cp_objective.py:136 "
+                               "(_bin_tile, want_sums=True)",
+               "launches": polished[key], **chk,
+               "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+               "library_ms": None, "shape": shape,
+               "no_sums_twin_ms": t["twin_ms"],
+               "nearest_library": "none: no call bins against given edges "
+                                  "with per-slot sums"}
+        if "narrow_ms" in t:
+            row["narrow_bracket_ms"] = t["narrow_ms"]
+        else:
+            n = ts[tkey.replace("first", "narrow")]
+            row.update(narrow_sweep_ms=n["ms"],
+                       narrow_sweep_twin_ms=n["twin_ms"],
+                       narrow_sweep_plain_ms=n["plain_ms"],
+                       narrow_sweep_bound_ms=n["bound"][0],
+                       narrow_sweep_distinct_ladders=n["distinct_ladders"])
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -4,14 +4,15 @@ Input arrays enter the port through :func:`from_numpy`, which places them
 on the card unless the caller names another device: nothing slides onto
 the CPU silently.  The selection path has no learned parameters; the state
 that crosses between the reference and the port is input arrays and
-results, so :func:`select_result_from_numpy` carries a result across.
+results, so :func:`select_result_from_numpy` carries a result across,
+and :func:`prior_from_numpy` a warm-start prior.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.selection import SelectResult
+from repro_torch.core.selection import Prior, SelectResult
 
 
 def from_numpy(x, device=None) -> torch.Tensor:
@@ -37,3 +38,14 @@ def select_result_from_numpy(res, device=None) -> SelectResult:
     example the reference's result after ``np.asarray`` on each field)."""
     return SelectResult(*(from_numpy(np.asarray(getattr(res, f)), device)
                           for f in SelectResult._fields))
+
+
+def prior_from_numpy(prior, device=None) -> Prior:
+    """The port's warm-start :class:`Prior` from any object with the fields
+    ``value, y_lo, y_hi`` and, optionally, ``cut`` as numpy arrays (the
+    reference's ``Prior``, or its ``SelectResult``, whose answer doubles as
+    the cut)."""
+    cut = getattr(prior, "cut", None)
+    return Prior(*(from_numpy(np.asarray(v), device) for v in (
+        prior.value, prior.y_lo, prior.y_hi,
+        prior.value if cut is None else cut)))

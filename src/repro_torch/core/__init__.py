@@ -1,11 +1,14 @@
-"""Selection engine of the port: objective, transforms and selection."""
+"""Selection engine of the port: objective, transforms, selection and the
+warm-started stream helpers."""
 from repro_torch.core.objective import SharedEvaluator
 from repro_torch.core.selection import (
     EXACT_HIT,
     HYBRID_SORT,
     NOT_CONVERGED,
     TIE_FALLBACK,
+    Prior,
     SelectResult,
+    as_prior,
     median,
     multi_order_statistic,
     order_statistic,
@@ -20,3 +23,4 @@ from repro_torch.core.selection import (
     weighted_quantiles,
     weighted_select_rows,
 )
+from repro_torch.core.stream import QuantileTracker, reselect

@@ -20,8 +20,8 @@ counts both drive the optimizer and certify exactness.
 The selection engine in :mod:`repro_torch.core.selection` never touches the
 data directly; it talks to an :class:`Evaluator`, which answers one question
 per iteration — ``evaluator(y: (B,) pivots) -> FG`` with ``(B,)`` fields —
-plus the binned pass ``histogram(edges)``.  On the counting leg every
-element has mass 1, so the measure fields ``m_lt`` / ``m_le`` alias the
+plus the binned pass ``histogram(edges, need_msum)``.  On the counting leg
+every element has mass 1, so the measure fields ``m_lt`` / ``m_le`` alias the
 int32 counts and every decision is an exact integer comparison.  On the
 weighted leg (``weights=`` on either evaluator) element ``i`` has mass
 ``w_i``: the target ``k`` is a cumulative mass, the measure fields carry
@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional, Protocol
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import _waccum_dtype
+from repro_torch.kernels.ref import _accum_dtype, _waccum_dtype
 
 
 class FG(NamedTuple):
@@ -116,6 +116,23 @@ def _weight_accum_dtype(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
     return _waccum_dtype(x, w)
 
 
+def compiled_mean(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+    """Mean of ``x`` (over ``dim``, or all of it) in ``x``'s dtype, formed
+    as the reference's compiled code forms it: the sum in the accumulation
+    dtype times the reciprocal of ``n`` rounded to that dtype (XLA turns
+    the division by the constant ``n`` into that product).  It seeds the
+    analytic cuts, so the polish's first cut matches the reference's bit
+    for bit wherever the sum is exact."""
+    acc = _accum_dtype(x)
+    n = x.numel() if dim is None else x.shape[dim]
+    # the reciprocal rounded to the accumulation dtype on the host: a
+    # Python scalar operand, so nothing is copied to the device
+    rcp = float(torch.ones((), dtype=acc) / torch.tensor(float(n), dtype=acc))
+    total = torch.sum(x, dtype=acc) if dim is None else torch.sum(
+        x, dim=dim, dtype=acc)
+    return (total * rcp).to(x.dtype)
+
+
 class Evaluator(Protocol):
     """Batched pivot evaluation: pivots ``(B,)`` -> :class:`FG` with ``(B,)``
     fields.  ``n`` is the per-problem element count, ``k`` the target
@@ -126,13 +143,14 @@ class Evaluator(Protocol):
 
     ``histogram`` bins each problem's data against the caller-supplied
     REALIZED edges ``(B, nbins + 1)`` — built once per sweep by the engine
-    with ``kernels.ref.bin_edges``; implementations only COMPARE against
+    (``kernels.ref.bin_edges``, or ``selection.polish_edges`` /
+    ``selection.prior_edges``); implementations only COMPARE against
     them and accept any sorted, possibly duplicated edge array — and
     returns additive ``(cnt, mass, msum)`` slot vectors of shape
     ``(B, nbins + 2)``: int32 counts, the per-slot measure (``cnt`` itself
-    on the counting leg, the weight mass on the weighted leg) and the
-    per-slot sums (``None``: only the polish reads them, and it is not
-    ported).
+    on the counting leg, the weight mass on the weighted leg) and, with
+    ``need_msum``, the per-slot sums of ``x`` (of ``w*x`` on the weighted
+    leg), else ``None``: only the in-bin polish reads them.
     """
 
     n: int
@@ -145,7 +163,7 @@ class Evaluator(Protocol):
                                   torch.Tensor]: ...
 
     def histogram(
-        self, edges: torch.Tensor
+        self, edges: torch.Tensor, need_msum: bool = False
     ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]: ...
 
 
@@ -163,7 +181,7 @@ class RowsEvaluator:
     device), ``k`` is the per-row TARGET CUMULATIVE MASS, in the mass
     accumulation dtype and clipped to the row's total weight ``W``; the
     partials carry weight masses in the measure fields and ``histogram``
-    returns ``(cnt, mass, None)``.
+    returns ``(cnt, mass, msum)``.
     """
 
     def __init__(self, x: torch.Tensor, k, weights=None):
@@ -191,10 +209,12 @@ class RowsEvaluator:
         return fg_from_partials(ops.fused_partials_batched(self.x, y),
                                 self.n, self.k)
 
-    def histogram(self, edges):
+    def histogram(self, edges, need_msum=False):
         if self.weighted:
-            return ops.fused_weighted_histogram_batched(self.x, self.w, edges)
-        cnt, bsum = ops.fused_histogram_batched(self.x, edges)
+            return ops.fused_weighted_histogram_batched(
+                self.x, self.w, edges, want_sums=need_msum)
+        cnt, bsum = ops.fused_histogram_batched(self.x, edges,
+                                                want_sums=need_msum)
         return cnt, cnt, bsum  # counting measure: the counts ARE the mass
 
     def init_stats(self):
@@ -206,7 +226,7 @@ class RowsEvaluator:
             return (torch.amin(x, dim=1), torch.amax(x, dim=1),
                     wmean.to(x.dtype))
         return (torch.amin(x, dim=1), torch.amax(x, dim=1),
-                torch.mean(x, dim=1))
+                compiled_mean(x, dim=1))
 
 
 class SharedEvaluator:
@@ -245,10 +265,12 @@ class SharedEvaluator:
         return fg_from_partials(ops.fused_partials_multi(self.x, y),
                                 self.n, self.k)
 
-    def histogram(self, edges):
+    def histogram(self, edges, need_msum=False):
         if self.weighted:
-            return ops.fused_weighted_histogram_multi(self.x, self.w, edges)
-        cnt, bsum = ops.fused_histogram_multi(self.x, edges)
+            return ops.fused_weighted_histogram_multi(
+                self.x, self.w, edges, want_sums=need_msum)
+        cnt, bsum = ops.fused_histogram_multi(self.x, edges,
+                                              want_sums=need_msum)
         return cnt, cnt, bsum  # counting measure: the counts ARE the mass
 
     def init_stats(self):
@@ -258,6 +280,6 @@ class SharedEvaluator:
                 / torch.clamp(self.W, min=1e-30)
             mean = wmean.to(x.dtype)
         else:
-            mean = torch.mean(x)
+            mean = compiled_mean(x)
         return (torch.amin(x).broadcast_to(shape),
                 torch.amax(x).broadcast_to(shape), mean.broadcast_to(shape))

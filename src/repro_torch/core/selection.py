@@ -21,6 +21,10 @@ Methods (shared skeleton, they differ only in the next-pivot proposal):
   (kernel K1 on the card), phase 1 runs ~2-3 sweeps until every row's
   in-bracket count is under ``cap``, phase 2 compacts the survivors into a
   ``(B, cap)`` buffer and finalizes exactly;
+* ``binned_polish`` — the binned descent with the in-bin CP polish: each
+  sweep also sums the values per slot (the sums legs K1s/K3s, K1ws/K3ws
+  on the card) and the straddling bin's mass centroid places half of the
+  next sweep's edges around it (:func:`polish_edges`);
 * ``cp``        — Kelley's cutting-plane method (Algorithm 1 of the paper),
   one fused pass (kernel K2 on the card) per iteration; ``cp_hybrid`` is an
   alias;
@@ -48,8 +52,16 @@ carried in f32 and kept ``(B, 1)``-shaped where they meet the data, so the
 comparisons run in f32 (torch would compare a bf16 tensor with a 0-dim f32
 tensor in bf16).
 
-Not ported yet: ``binned_polish``, ``prior=`` warm starts, segmented
-selection and the distributed engine (see ROADMAP.md).
+Warm starts: every public entry point takes ``prior=`` (a previous
+:class:`SelectResult`, a :class:`Prior` or a bare value; see
+:func:`as_prior`).  The prior places the first sweep's edges
+(:func:`prior_edges`) or the first cp pivot and nothing else, so a warm
+answer equals the cold one bit for bit and an unchanged answer
+re-certifies in one sweep; ``core/stream.py`` carries it across the ticks
+of a stream.
+
+Not ported yet: segmented selection and the distributed engine (see
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -65,8 +77,8 @@ from repro_torch.core.objective import (FG, Evaluator, RowsEvaluator,
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import bin_edges
 
-METHODS = ("binned", "cp", "cp_hybrid", "bisection", "golden", "brent",
-           "sort")
+METHODS = ("binned", "binned_polish", "cp", "cp_hybrid", "bisection",
+           "golden", "brent", "sort")
 
 # method=None resolution: histogram sweeps win once the O(n) data pass
 # dominates (~3 sweeps vs ~15 CP passes); below this the per-sweep bin
@@ -97,6 +109,43 @@ class SelectResult(NamedTuple):
     n_in: torch.Tensor    # count(y_lo < x <= y_hi) at exit
 
 
+class Prior(NamedTuple):
+    """Warm-start carry for repeated selection (``prior=`` on every public
+    entry point): the previous answer, its realized bracket and the last
+    polish cut, each broadcastable to the solve's batch shape ((B,) rows,
+    (K,) shared x, or scalar).
+
+    The prior steers only the FIRST pivot (cp family) or the FIRST sweep's
+    edge placement (binned family, :func:`prior_edges`); every narrowing
+    decision and every certificate still runs off measured prefix
+    invariants, so a stale, garbage, NaN or wrong-array prior costs sweeps,
+    never exactness."""
+    value: torch.Tensor  # previous answer
+    y_lo: torch.Tensor   # realized final bracket, reused verbatim as edges
+    y_hi: torch.Tensor
+    cut: torch.Tensor    # last polish cut (seeds the carried in-bin cut)
+
+
+def as_prior(prior) -> Optional[Prior]:
+    """Normalize a ``prior=`` argument: ``None`` | :class:`Prior` |
+    :class:`SelectResult` (its bracket reused verbatim, the answer doubling
+    as the cut) | a bare value (an answer-only seed)."""
+    if prior is None or isinstance(prior, Prior):
+        return prior
+    if isinstance(prior, SelectResult):
+        return Prior(value=prior.value, y_lo=prior.y_lo, y_hi=prior.y_hi,
+                     cut=prior.value)
+    v = torch.as_tensor(prior)
+    return Prior(value=v, y_lo=v, y_hi=v, cut=v)
+
+
+def _prior_to(prior: Prior, dtype, like: torch.Tensor) -> Prior:
+    """The prior's fields in ``dtype``, broadcast to ``like``'s shape and
+    on its device."""
+    return Prior(*(torch.as_tensor(f, device=like.device).to(dtype)
+                   .broadcast_to(like.shape) for f in prior))
+
+
 class BatchState(NamedTuple):
     """Bracket-loop state; every field is (B,)-shaped except the host-side
     global iteration counter ``it``."""
@@ -112,17 +161,17 @@ class BatchState(NamedTuple):
     found_exact: torch.Tensor
     iters: torch.Tensor  # per-row live-iteration count
     it: int              # global (batch) iteration count
-    # golden/brent bookkeeping: previous probe (for the parabolic fit)
+    # golden/brent bookkeeping: previous probe (for the parabolic fit); the
+    # binned polish reuses it as the carried in-bin cut
     tp: torch.Tensor
     fp: torch.Tensor
 
 
 def _resolve_method(method: Optional[str], n: int) -> str:
-    """``None``/``'auto'`` -> 'binned' for ``n >= BINNED_MIN_N``, else 'cp'."""
+    """``None``/``'auto'`` -> 'binned' for ``n >= BINNED_MIN_N``, else 'cp'
+    (auto stays on plain 'binned', as in the reference)."""
     if method in (None, "auto"):
         return "binned" if n >= BINNED_MIN_N else "cp"
-    if method == "binned_polish":
-        raise NotImplementedError("method='binned_polish' is not ported yet")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
     return method
@@ -188,14 +237,15 @@ def _live(s: BatchState, cap):
 def _seed_state(ev: Evaluator):
     """Shared loop seed: analytic bracket/cut init from one stats pass.
 
-    Returns ``(s0, xmin, xmax, kk, dtype)``.  Counting leg: the slopes use
-    the paper's normalized weights with the conservative tie count 1, which
-    keeps the support lines *lower* bounds (valid cuts) even with
+    Returns ``(s0, xmin, xmax, kk, dtype, xmean)``.  Counting leg: the slopes
+    use the paper's normalized weights with the conservative tie count 1,
+    which keeps the support lines *lower* bounds (valid cuts) even with
     duplicated extremes.  Weighted leg: the mass-normalized coefficients
     ``alpha = (W - wk)/W`` and ``beta = wk/W`` with the conservative extreme
     slopes ``-wk/W`` / ``(W - wk)/W`` (no mass assumed at the extremes —
     flatter than the truth, so the support lines stay lower bounds); the f
-    seeds anchor on the weighted mean.
+    seeds anchor on the weighted mean, which is returned for the polish's
+    first cut (:func:`_seed_cut`).
     """
     xmin, xmax, xmean = ev.init_stats()
     shape = torch.broadcast_shapes(xmin.shape, ev.k.shape)
@@ -232,7 +282,55 @@ def _seed_state(ev: Evaluator):
         it=0,
         tp=0.5 * (xmin + xmax), fp=torch.maximum(fL0, fR0),
     )
-    return s0, xmin, xmax, kk, dtype
+    return s0, xmin, xmax, kk, dtype, xmean
+
+
+def _fma(a, b, c):
+    """``a*b + c`` rounded once to ``a``'s dtype (f32 operands: the product
+    is exact in f64, so only the final sum rounds twice, f64 then f32);
+    ``b`` may be a Python scalar."""
+    wide = torch.float64
+    b = b.to(wide) if torch.is_tensor(b) else b
+    return (a.to(wide) * b + c.to(wide)).to(a.dtype)
+
+
+def _seed_cut(ev: Evaluator, kk, xmin, xmax, xmean):
+    """The polish's first cut: the Kelley intersection of the support lines
+    at the data's extremes, ``(fR - fL + xmin*gL - xmax*gR) / (gL - gR)``,
+    in the arithmetic of the reference's compiled seed.  XLA folds the
+    constant ``n`` into reciprocals (``c1 = 1/n``, ``c2 = c1*c1``,
+    ``c3 = (c1*(n-1))*c1``, each rounded) and contracts each sum whose
+    first operand is a product into a fused multiply-add, emulated here by
+    :func:`_fma`.  The cut only places edges, so any finite value is sound;
+    this form makes the polished sweeps match the reference's bit for bit
+    where the stats are exact.  Computed in the data's dtype promoted to
+    f32 at least."""
+    dt = torch.promote_types(xmin.dtype, torch.float32)
+    xmin, xmax, xmean = xmin.to(dt), xmax.to(dt), xmean.to(dt)
+    s112, s111 = xmax - xmean, xmean - xmin
+    if ev.weighted:
+        Wf = ev.W.to(kk.dtype).broadcast_to(kk.shape)
+        Wsafe = torch.clamp(Wf, min=1e-30)
+        alpha = ((Wf - kk) / Wsafe).to(dt)
+        beta = (kk / Wsafe).to(dt)
+        gL, gR = -beta, alpha
+    else:
+        # the folded constants, each rounded to dt on the host (Python
+        # scalars: nothing is copied to the device)
+        nf = torch.tensor(float(ev.n), dtype=dt)
+        c1t = torch.ones((), dtype=dt) / nf
+        c1, c2 = float(c1t), float(c1t * c1t)
+        c3 = float((c1t * (nf - 1)) * c1t)
+        kf = kk.to(dt)
+        s1 = float(torch.tensor(ev.n + 0.5, dtype=dt)) - kf
+        a245 = kf - 0.5
+        alpha, beta = s1 * c1, a245 * c1
+        gL = _fma(s1, c2, -(a245 * c3))
+        gR = _fma(s1, c3, -(a245 * c2))
+    num = _fma(alpha, s112, -(beta * s111))      # fR - fL
+    num = _fma(xmin, gL, num)                    # + xmin * gL
+    num = _fma(-xmax, gR, num)                   # - xmax * gR
+    return num / (gL - gR)
 
 
 def bracket_loop_batched(
@@ -241,6 +339,7 @@ def bracket_loop_batched(
     method: str = "cp",
     maxit: int = 64,
     cap=0,
+    prior: Optional[Prior] = None,
 ):
     """Run the batched bracket-shrinking loop against an evaluator.
 
@@ -253,10 +352,16 @@ def bracket_loop_batched(
     certified or once ``count(y_L < x <= y_R) <= cap``; the loop ends when
     no row is live or after ``maxit`` iterations.
 
+    ``prior`` (warm start): the prior answer replaces the FIRST proposal
+    only, and only where it is finite and strictly inside the open
+    bracket; the measured partials decide every move, so an exact prior
+    certifies in one pass and a wrong one costs passes, never exactness.
+
     Returns ``(final BatchState, xmin, xmax)`` with per-row extremes.
     """
     propose = _PROPOSALS[method]
-    s, xmin, xmax, kk, dtype = _seed_state(ev)
+    s, xmin, xmax, kk, dtype, _ = _seed_state(ev)
+    pv0 = None if prior is None else _prior_to(prior, dtype, s.yL).value
     while s.it < maxit:
         lv = _live(s, cap)
         if not bool(lv.any()):
@@ -266,6 +371,9 @@ def bracket_loop_batched(
         # rows get the midpoint — their updates are masked out anyway)
         bad = ~torch.isfinite(t) | (t <= s.yL) | (t >= s.yR)
         t = torch.where(bad, 0.5 * (s.yL + s.yR), t).to(dtype)
+        if pv0 is not None and s.it == 0:
+            use = torch.isfinite(pv0) & (pv0 > s.yL) & (pv0 < s.yR)
+            t = torch.where(use, pv0, t)
         fg: FG = ev(t)
         exact = (fg.m_lt < kk) & (kk <= fg.m_le) & lv
         # exact => 0 in [g_lo, g_hi] => g_hi >= 0, so the two are disjoint:
@@ -328,33 +436,158 @@ def binned_descent_step(cum, edges, yL, yR, kk):
     return yLn, yRn, cLn, cRn, jm1, jstar, hit_lo, exact, stall
 
 
+def _clip(v, lo, hi):
+    """``jnp.clip``: ``min(max(v, lo), hi)``, elementwise and broadcast."""
+    return torch.minimum(torch.maximum(v, lo), hi)
+
+
+def _sorted_edges(parts, lo, hi):
+    """The realized edge array from its pieces: sorted (stable, so equal
+    values keep their order, -0.0 and 0.0 included) with the endpoints
+    pinned to ``lo`` and ``hi`` AFTER the sort."""
+    e = torch.sort(torch.cat(parts, dim=-1), dim=-1, stable=True).values
+    e[..., 0] = lo
+    e[..., -1] = hi
+    return e
+
+
+def polish_edges(lo, hi, t, nbins: int) -> torch.Tensor:
+    """CP-centered realized bin edges for one polish sweep.
+
+    Half the edges cover ``[lo, hi]`` uniformly (:func:`bin_edges` with
+    ``nbins // 2`` bins: the worst-case shrink of a plain sweep with half
+    the bins); the other half sit geometrically around the carried cut
+    ``t`` at offsets ``halfwidth * 2^-j``, ``j = 1 .. nbins // 4``, so when
+    ``t`` is near the answer the straddling bin comes out orders of
+    magnitude narrower than ``1/nbins`` of the bracket.
+
+    Exactness is inherited, not re-proven: the output is a sorted array of
+    realized values in ``[lo, hi]`` with ``e_0 == lo`` and
+    ``e_nbins == hi`` exactly, built ONCE per sweep and shared by the
+    histogram pass and the narrowing decision.  A garbage cut (NaN, out of
+    the bracket) degrades to the bracket midpoint; the certificates never
+    trust the cut itself.
+    """
+    lo = torch.as_tensor(lo)
+    hi = torch.as_tensor(hi, dtype=lo.dtype, device=lo.device)
+    dt = lo.dtype
+    nu = nbins // 2
+    m = (nbins - nu) // 2
+    extra = nbins - nu - 2 * m
+    base = bin_edges(lo, hi, nu)                       # (..., nu + 1)
+    mid = 0.5 * lo + 0.5 * hi
+    t = torch.as_tensor(t, device=lo.device).to(dt)
+    tc = _clip(torch.where(torch.isfinite(t), t, mid), lo, hi)
+    half = hi / 2 - lo / 2   # overflow-safe half-width (divide BEFORE diff)
+    j = torch.arange(1, m + 1, dtype=dt, device=lo.device)
+    d = half[..., None] * torch.pow(2.0, -j)
+    lo1, hi1 = lo[..., None], hi[..., None]
+    parts = [base, _clip(tc[..., None] - d, lo1, hi1),
+             _clip(tc[..., None] + d, lo1, hi1)]
+    if extra:
+        parts.append(tc[..., None].expand(tc.shape + (extra,)))
+    return _sorted_edges(parts, lo, hi)
+
+
+def prior_edges(lo, hi, prior: Prior, nbins: int) -> torch.Tensor:
+    """Prior-seeded realized bin edges for the FIRST sweep of a warm solve.
+
+    ``nbins + 1`` edges under the :func:`polish_edges` contract (sorted,
+    clipped into ``[lo, hi]``, endpoints pinned after the sort, built once
+    and shared by the histogram pass and the narrowing decision):
+
+    * half cover ``[lo, hi]`` uniformly — a garbage prior still buys a
+      factor ``nbins/2`` shrink;
+    * the prior's realized bracket ends ``y_lo``/``y_hi`` verbatim — on
+      unchanged data the straddling bin lands inside the carried bracket,
+      already under cap, so the row stops after ONE sweep;
+    * the pair ``(prev_float(value), value)`` — an unchanged answer makes
+      the straddling bin hold a single representable value, so the
+      ulp-collapse certificate of :func:`binned_descent_step` fires: one
+      sweep WITH an exact hit;
+    * the rest a geometric ladder around ``value`` at offsets ``w0 * 2^j``
+      with ``w0 = max(y_hi - y_lo, 1 ulp)``.
+
+    NaN and infinite fields degrade to the bracket midpoint; the prior only
+    chooses WHERE edges go.
+    """
+    lo = torch.as_tensor(lo)
+    hi = torch.as_tensor(hi, dtype=lo.dtype, device=lo.device)
+    dt = lo.dtype
+    mid = 0.5 * lo + 0.5 * hi
+
+    def san(v):
+        v = torch.as_tensor(v, device=lo.device).to(dt)
+        return _clip(torch.where(torch.isfinite(v), v, mid), lo, hi)
+
+    pv, plo, phi = san(prior.value), san(prior.y_lo), san(prior.y_hi)
+    nu = max(nbins // 2, 1)
+    r = nbins - nu
+    base = bin_edges(lo, hi, nu)                       # (..., nu + 1)
+    sharp = [pv, _clip(transforms.prev_float(pv), lo, hi), plo, phi][:r]
+    m = (r - len(sharp)) // 2
+    extra = r - len(sharp) - 2 * m
+    parts = [base]
+    if sharp:
+        parts.append(torch.stack(torch.broadcast_tensors(*sharp), dim=-1))
+    if m > 0:
+        fmax = torch.finfo(dt).max
+        w0 = torch.maximum(phi - plo, transforms.next_float(pv) - pv)
+        w0 = torch.clamp(w0, torch.finfo(dt).tiny, fmax)
+        j = torch.arange(m, dtype=dt, device=lo.device)
+        d = torch.clamp(w0[..., None] * torch.pow(2.0, j), 0.0, fmax)
+        lo1, hi1 = lo[..., None], hi[..., None]
+        parts.append(_clip(pv[..., None] - d, lo1, hi1))
+        parts.append(_clip(pv[..., None] + d, lo1, hi1))
+    if extra:
+        parts.append(pv[..., None].expand(pv.shape + (extra,)))
+    return _sorted_edges(parts, lo, hi)
+
+
 def binned_loop_batched(
     ev: Evaluator,
     *,
     nbins: int = DEF_NBINS,
     maxit: int = 16,
     cap=0,
+    polish: bool = False,
+    prior: Optional[Prior] = None,
 ):
     """Phase 1 of the binned two-phase schedule: histogram bracket descent.
 
     Each sweep builds the bracket's realized edges once
-    (``kernels.ref.bin_edges``), calls ``ev.histogram(edges)`` — ONE fused
-    data pass — and narrows every live row's bracket to the single
-    sub-interval ``(e_{j-1}, e_j]`` whose prefix MEASURE straddles that
-    row's target (:func:`binned_descent_step`; int32 counts, or weight
-    masses on the weighted leg — the decision is ordering-only, so both
-    legs take the same path).  Brackets only move to REALIZED edge values
-    whose prefix measures were measured, so the row invariant
-    ``measure(x <= yL) < k <= measure(x <= yR)`` holds at every step.
-    Integer prefix counts at the chosen edges feed the cap rule on both
-    legs: rows stop once their in-bracket count is under ``cap``, on the
-    exact certificates, on a stall, or at ``maxit``.  A late ``hit_lo``
+    (``kernels.ref.bin_edges``; :func:`polish_edges` with ``polish``),
+    calls ``ev.histogram(edges)`` — ONE fused data pass — and narrows every
+    live row's bracket to the single sub-interval ``(e_{j-1}, e_j]`` whose
+    prefix MEASURE straddles that row's target (:func:`binned_descent_step`;
+    int32 counts, or weight masses on the weighted leg — the decision is
+    ordering-only, so both legs take the same path).  Brackets only move to
+    REALIZED edge values whose prefix measures were measured, so the row
+    invariant ``measure(x <= yL) < k <= measure(x <= yR)`` holds at every
+    step.  Integer prefix counts at the chosen edges feed the cap rule on
+    both legs: rows stop once their in-bracket count is under ``cap``, on
+    the exact certificates, on a stall, or at ``maxit``.  A late ``hit_lo``
     (the invariant forbids it after sweep 1; with inexact masses it can
     only be a summation-order flip) is demoted to a stall.
 
+    The in-bin CP polish (``polish=True``): the pass also returns per-slot
+    sums ``Σ (w·)x``, and the Kelley intersection of the objective's support
+    lines at the straddling bin's two edges collapses to the bin's mass
+    centroid ``Σ_bin w·x / Σ_bin w``.  The loop carries that cut (seeded
+    from the analytic extreme cuts before sweep 1, :func:`_seed_cut`) and
+    hands it to :func:`polish_edges`, so the next sweep has near-ulp
+    resolution around the minimizer.  The cut steers only edge placement.
+
+    ``prior`` (warm start): sweep 1's edges come from :func:`prior_edges`
+    instead — the prior's realized bracket ends verbatim and the
+    ``(prev_float(value), value)`` pair, so an unchanged answer
+    collapse-certifies in one sweep; the prior's cut also seeds the carried
+    cut (over the analytic polish seed) where it is finite and strictly
+    inside the bracket.  Placement only, as the polish cut.
+
     Returns ``(BatchState, xmin, xmax)``; ``iters`` counts histogram sweeps.
     """
-    s, xmin, xmax, kk, dtype = _seed_state(ev)
+    s, xmin, xmax, kk, dtype, xmean = _seed_state(ev)
     # Brackets narrow to realized edge values and the finalize recounts
     # against exactly those values, so the loop state must not round edges
     # through a storage dtype below the kernels' f32 (bf16 data would
@@ -362,15 +595,34 @@ def binned_loop_batched(
     dt = torch.promote_types(dtype, torch.float32)
     s = s._replace(yL=s.yL.to(dt), yR=s.yR.to(dt),
                    t_exact=s.t_exact.to(dt), tp=s.tp.to(dt))
+    if polish:
+        # seed the carried cut with the analytic CP intersection, so that
+        # even sweep 1 puts half its bins near the expected minimizer
+        cut0 = _seed_cut(ev, kk, xmin, xmax, xmean)
+        bad = ~torch.isfinite(cut0) | (cut0 <= s.yL) | (cut0 >= s.yR)
+        s = s._replace(tp=torch.where(bad, 0.5 * (s.yL + s.yR),
+                                      cut0).to(dt))
+    pb = None
+    if prior is not None:
+        pb = _prior_to(prior, dt, s.yL)
+        # the prior's carried cut beats the analytic seed where usable
+        okc = torch.isfinite(pb.cut) & (pb.cut > s.yL) & (pb.cut < s.yR)
+        s = s._replace(tp=torch.where(okc, pb.cut, s.tp))
     stalled = torch.zeros_like(s.found_exact)
     while s.it < maxit:
         lv = _live(s, cap) & ~stalled
         if not bool(lv.any()):
             break
         # the realized edges are computed ONCE here and shared by the data
-        # pass and the narrowing decision (the exactness contract)
-        edges = bin_edges(s.yL, s.yR, nbins)
-        cnt, mass, _ = ev.histogram(edges)
+        # pass and the narrowing decision (the exactness contract); a warm
+        # sweep 1 places them from the prior
+        if pb is not None and s.it == 0:
+            edges = prior_edges(s.yL, s.yR, pb, nbins)
+        elif polish:
+            edges = polish_edges(s.yL, s.yR, s.tp, nbins)
+        else:
+            edges = bin_edges(s.yL, s.yR, nbins)
+        cnt, mass, msum = ev.histogram(edges, need_msum=polish)
         # prefix counts at the realized edges: cum[..., j] = count(x <= e_j)
         cumn = torch.cumsum(cnt[..., :-1], dim=-1, dtype=torch.int32)
         # the prefix measures decide the narrowing (the counts themselves on
@@ -384,6 +636,20 @@ def binned_loop_batched(
         t_ex = torch.where(hit_lo, s.yL, yRn)
         stall_n = lv & (stall | late_hit_lo)
         upd = lv & ~exact & ~stall_n
+        tp = s.tp
+        if polish:
+            if msum is None:
+                raise ValueError("binned polish needs the per-slot sums; "
+                                 "this evaluator's histogram returned none")
+            # the in-bin support-line intersection == the straddling bin's
+            # mass centroid; guard empty bins and non-finite sums
+            mbin = _take(mass, jstar).to(msum.dtype)
+            sbin = _take(msum, jstar)
+            tcut = sbin / torch.where(mbin > 0, mbin, 1)
+            good = (mbin > 0) & torch.isfinite(tcut)
+            tcut = torch.where(good, _clip(tcut, yLn, yRn),
+                               0.5 * (yLn + yRn)).to(dt)
+            tp = torch.where(upd, tcut, s.tp)
         s = s._replace(
             yL=torch.where(upd, yLn, s.yL),
             yR=torch.where(upd, yRn, s.yR),
@@ -393,16 +659,21 @@ def binned_loop_batched(
             found_exact=s.found_exact | exact,
             iters=s.iters + lv.to(torch.int32),
             it=s.it + 1,
+            tp=tp,
         )
         stalled = stalled | stall_n
     return s, xmin, xmax
 
 
-def _run_bracket_phase(ev, method, maxit, cap, nbins):
-    """Dispatch the phase-1 loop for a resolved method."""
-    if method == "binned":
-        return binned_loop_batched(ev, nbins=nbins, maxit=maxit, cap=cap)
-    return bracket_loop_batched(ev, method=method, maxit=maxit, cap=cap)
+def _run_bracket_phase(ev, method, maxit, cap, nbins, prior=None):
+    """Dispatch the phase-1 loop for a resolved method; ``prior`` places
+    the first sweep's edges or the first cp pivot."""
+    if method in ("binned", "binned_polish"):
+        return binned_loop_batched(ev, nbins=nbins, maxit=maxit, cap=cap,
+                                   polish=method == "binned_polish",
+                                   prior=prior)
+    return bracket_loop_batched(ev, method=method, maxit=maxit, cap=cap,
+                                prior=prior)
 
 
 def rank_compact(mask_in: torch.Tensor, cap: int, cols):
@@ -592,6 +863,13 @@ def _default_cap_rows(n: int) -> int:
     return int(min(max(256, n // 64), 4096))
 
 
+def _log1p_prior(prior: Prior, x, x0) -> Prior:
+    """The prior in the log1p domain of anchors ``x0`` (per row, or one):
+    ``log1p(v - x0)`` per field, in ``x``'s dtype."""
+    return Prior(*(torch.log1p(torch.as_tensor(f, device=x.device).to(
+        x.dtype) - x0) for f in prior))
+
+
 def _map_bracket_back_rows(x, xt, s: BatchState) -> BatchState:
     """Map a transformed-domain bracket back to original values, row-wise.
 
@@ -662,10 +940,12 @@ def select_rows(
     resolves to 'binned' for ``n >= BINNED_MIN_N`` and 'cp' otherwise;
     ``nbins`` sizes the binned sweeps (``None``: 128 where the kernel runs,
     16 on the plain path); ``transform='log1p'`` runs the iterations on the
-    row-wise monotone image.  Computes on ``x``'s device.
+    row-wise monotone image.  ``prior``: a warm start (:func:`as_prior`) —
+    the result equals a cold solve's bit for bit, only the sweep or pass
+    counts change; an unchanged answer re-certifies in one sweep or pass.
+    Computes on ``x``'s device.
     """
-    if prior is not None:
-        raise NotImplementedError("prior= warm starts are not ported yet")
+    prior = as_prior(prior)
     if x.dim() != 2:
         raise ValueError(f"select_rows wants (B, n) data, got "
                          f"{tuple(x.shape)}")
@@ -691,8 +971,12 @@ def select_rows(
 
     if transform == "log1p":
         xt = transforms.log1p_transform_rows(x)
+        if prior is not None:
+            # map the (original-space) prior through the row anchors; a
+            # value below the anchor maps to NaN and is sanitized away
+            prior = _log1p_prior(prior, x, torch.amin(x, dim=1))
         s, _, _ = _run_bracket_phase(RowsEvaluator(xt, ks), method, maxit,
-                                     cap, nbins)
+                                     cap, nbins, prior)
         s = _map_bracket_back_rows(x, xt, s)
         return _finalize_rows(x, ks, s, cap, torch.amin(x, dim=1),
                               torch.amax(x, dim=1))
@@ -700,7 +984,7 @@ def select_rows(
         raise ValueError(f"unknown transform {transform!r}")
 
     ev = RowsEvaluator(x, ks)
-    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins)
+    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins, prior)
     return _finalize_rows(x, ks, s, cap, xmin, xmax)
 
 
@@ -724,7 +1008,7 @@ def order_statistic(
     res = select_rows(
         x[None, :], torch.as_tensor(k, device=x.device).reshape(1),
         method=method, maxit=maxit, cap=cap, transform=transform,
-        nbins=nbins, prior=prior,
+        nbins=nbins, prior=as_prior(prior),
     )
     return SelectResult(*(a[0] for a in res))
 
@@ -776,10 +1060,10 @@ def multi_order_statistic(
     survivors straight from the ``(n,)`` array (:func:`_finalize_shared`),
     so no ``(K, n)`` tensor exists.  Every field of the result is
     (K,)-shaped, in the order of ``ks``.  Options as :func:`select_rows`,
-    with the batched cap policy.
+    with the batched cap policy; ``prior`` warm-starts every target from a
+    previous (K,) result.
     """
-    if prior is not None:
-        raise NotImplementedError("prior= warm starts are not ported yet")
+    prior = as_prior(prior)
     x = x.reshape(-1)
     n = x.numel()
     method = _resolve_method(method, n)
@@ -804,8 +1088,10 @@ def multi_order_statistic(
 
     if transform == "log1p":
         xt, _ = transforms.log1p_transform(x)
+        if prior is not None:
+            prior = _log1p_prior(prior, x, torch.amin(x))
         s, _, _ = _run_bracket_phase(SharedEvaluator(xt, ks), method, maxit,
-                                     cap, nbins)
+                                     cap, nbins, prior)
         s = _map_bracket_back_shared(x, xt, s)
         return _finalize_shared(x, ks, s, cap,
                                 torch.amin(x).broadcast_to((nk,)),
@@ -814,7 +1100,7 @@ def multi_order_statistic(
         raise ValueError(f"unknown transform {transform!r}")
 
     ev = SharedEvaluator(x, ks)
-    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins)
+    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins, prior)
     return _finalize_shared(ev.x, ks, s, cap, xmin, xmax)
 
 
@@ -864,10 +1150,9 @@ def weighted_select_rows(
     without ``transform``; ``method='sort'`` is the weighted sort-cumsum
     baseline.  ``nbins=None`` resolves on both operands (an f64 ``w`` on
     f32 ``x`` takes the plain version and its 16 bins).  Computes on
-    ``x``'s device; ``w`` is moved there.
+    ``x``'s device; ``w`` is moved there.  ``prior`` as in
+    :func:`select_rows`.
     """
-    if prior is not None:
-        raise NotImplementedError("prior= warm starts are not ported yet")
     if x.dim() != 2:
         raise ValueError(f"weighted_select_rows wants (B, n) data, got "
                          f"{tuple(x.shape)}")
@@ -893,7 +1178,8 @@ def weighted_select_rows(
             n_in=torch.full((b,), n, dtype=torch.int32, device=x.device),
         )
 
-    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins)
+    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins,
+                                       as_prior(prior))
     return _finalize_rows(ev.x, wkk, s, cap, xmin, xmax,
                           w=ev.w.to(wkk.dtype))
 
@@ -919,7 +1205,8 @@ def weighted_order_statistic(
     res = weighted_select_rows(
         x[None, :], torch.as_tensor(w, device=x.device).reshape(1, -1),
         torch.as_tensor(wk, device=x.device).reshape(1),
-        method=method, maxit=maxit, cap=cap, nbins=nbins, prior=prior,
+        method=method, maxit=maxit, cap=cap, nbins=nbins,
+        prior=as_prior(prior),
     )
     return SelectResult(*(a[0] for a in res))
 
@@ -966,8 +1253,6 @@ def weighted_multi_order_statistic(
     is (K,)-shaped.  Options as :func:`weighted_select_rows`, with the
     batched cap policy.
     """
-    if prior is not None:
-        raise NotImplementedError("prior= warm starts are not ported yet")
     x = x.reshape(-1)
     n = x.numel()
     w = torch.as_tensor(w, device=x.device).reshape(-1).broadcast_to(x.shape)
@@ -995,7 +1280,8 @@ def weighted_multi_order_statistic(
             n_in=torch.full((nk,), n, dtype=torch.int32, device=x.device),
         )
 
-    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins)
+    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins,
+                                       as_prior(prior))
     return _finalize_shared(ev.x, wkk, s, cap, xmin, xmax,
                             w=ev.w.to(wkk.dtype))
 

@@ -7,29 +7,34 @@ and a weighted leg (a static specialization of the same source):
 * K1 ``csrc/hist_batched.cu`` behind :func:`cp_histogram_batched` and, on
   the weighted leg, :func:`wcp_histogram_batched` (K1w) — the row-wise
   binned sweep (replaces the TPU body ``_hist_kernel_batched`` of
-  ``repro/kernels/cp_objective.py``), without per-slot sums;
+  ``repro/kernels/cp_objective.py``); with ``want_sums`` the same wrappers
+  launch the legs that also sum the values per slot, K1s (Σx) and K1ws
+  (Σw·x), the input of the polish;
 * K2 ``csrc/fg_batched.cu`` behind :func:`cp_partials_batched` and
   :func:`wcp_partials_batched` (K2w) — the row-wise cutting-plane pass
   (replaces ``_fg_kernel_batched``);
 * K3 ``csrc/hist_multi.cu`` behind :func:`cp_histogram_multi` and its K=1
   view :func:`cp_histogram`, and :func:`wcp_histogram_multi` /
   :func:`wcp_histogram` (K3w) — one shared array binned against K ladders
-  in one read (replaces ``_hist_kernel_multi``), without per-slot sums;
+  in one read (replaces ``_hist_kernel_multi``); with ``want_sums`` the
+  legs K3s (Σx) and K3ws (Σw·x);
 * K4 ``csrc/fg_multi.cu`` behind :func:`cp_partials_multi` and its K=1
   view :func:`cp_partials`, and :func:`wcp_partials_multi` /
   :func:`wcp_partials` (K4w) — the partials of K pivots from one read of a
   shared array (replaces ``_fg_kernel_multi``).
 
 On the weighted leg ``x`` and ``w`` are each f32 or bf16, both read as
-f32.  Every f32 sum there — the masses that decide the weighted narrowing
-included — comes from per-block partials reduced over blocks here in a
-fixed order, with a block count that depends on ``n`` alone, so the same
-input gives the same bits from run to run.
+f32.  Every f32 sum — the masses that decide the weighted narrowing and
+the per-slot sums that place the polish cut included — comes from
+per-block partials reduced over blocks here in a fixed order, with a block
+count that depends on ``n`` alone, so the same input gives the same bits
+from run to run.
 
 Each wrapper checks what the kernel takes and raises on anything else,
 allocates the outputs, launches on the current stream, raises on a
 non-zero ``cudaGetLastError`` and adds one to its entry in
-:data:`LAUNCHES`.  The plain versions live in :mod:`repro_torch.kernels.ref`.
+:data:`LAUNCHES` (a histogram's sums leg to its own ``*_sums`` entry).
+The plain versions live in :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
@@ -46,7 +51,10 @@ LAUNCHES = {"cp_histogram_batched": 0, "cp_partials_batched": 0,
             "cp_histogram": 0, "cp_partials": 0,
             "wcp_histogram_batched": 0, "wcp_partials_batched": 0,
             "wcp_histogram_multi": 0, "wcp_partials_multi": 0,
-            "wcp_histogram": 0, "wcp_partials": 0}
+            "wcp_histogram": 0, "wcp_partials": 0,
+            "cp_histogram_batched_sums": 0, "cp_histogram_multi_sums": 0,
+            "cp_histogram_sums": 0, "wcp_histogram_batched_sums": 0,
+            "wcp_histogram_multi_sums": 0, "wcp_histogram_sums": 0}
 
 # K1: blocks resident per SM that the grid aims to fill (integer atomics make
 # the counts independent of the block count, so it may follow the card)
@@ -70,9 +78,10 @@ HIST_OPTIN_SMEM = 227 * 1024
 # K4: at most 16 pivots share a block (four register accumulators each,
 # six on the weighted leg)
 FG_MULTI_GROUP = 16
-# K1w/K3w: at most 8 warps per block, each with its own f32 mass row per
-# ladder in shared memory; the block count is fg_blocks(n), so the order
-# of the mass sums depends on n alone
+# K1w/K3w and the sums legs: at most 8 warps per block, each with its own
+# f32 rows per ladder in shared memory (one: mass or sum; two: mass and
+# sum); the block count is fg_blocks(n), so the order of the sums depends
+# on n alone
 WHIST_MAX_WARPS = 8
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -87,6 +96,11 @@ _SIGNATURES = {
     "whist_multi": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
                     _P],
     "wfg_multi": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
+    "shist_batched": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
+    "wshist_batched": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P],
+    "shist_multi": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
+    "wshist_multi": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+                     _P],
 }
 _fns: dict = {}
 
@@ -96,11 +110,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _kernel_fn(lib_name: str, dtype: torch.dtype, wdtype=None):
+def _kernel_fn(lib_name: str, dtype: torch.dtype, wdtype=None,
+               sums: bool = False):
     """The C entry of ``csrc/<lib_name>.cu`` for ``x`` of ``dtype`` — on
     the weighted leg (``wdtype``, the weights' dtype) the ``w``-prefixed
-    entry for that pair of types."""
-    prefix = lib_name if wdtype is None else f"w{lib_name}"
+    entry for that pair of types, and for a histogram's sums leg
+    (``sums``) the ``s``-prefixed one."""
+    prefix = ("w" if wdtype is not None else "") + ("s" if sums else "") \
+        + lib_name
     name = f"{prefix}_{_KERNEL_DTYPES[dtype]}"
     if wdtype is not None:
         name += f"_{_KERNEL_DTYPES[wdtype]}"
@@ -182,10 +199,17 @@ def fg_blocks(n: int) -> int:
     return max(1, min(-(-n // FG_CHUNK), FG_MAX_BLOCKS))
 
 
-def cp_histogram_batched(x: torch.Tensor, edges: torch.Tensor):
+def cp_histogram_batched(x: torch.Tensor, edges: torch.Tensor, *,
+                         want_sums: bool = False):
     """K1: per-row slot counts of ``x`` (B, n) f32/bf16 against realized
-    f32 ``edges`` (B, nbins+1).  Returns ``(cnt, None)`` with ``cnt`` int32
-    (B, nbins + 2), slot layout as ``ref.searchsorted_slots``."""
+    f32 ``edges`` (B, nbins+1).  Returns ``(cnt, bsum)`` with ``cnt`` int32
+    (B, nbins + 2), slot layout as ``ref.searchsorted_slots``; ``bsum`` is
+    ``None``, or with ``want_sums`` (the K1s leg) the f32 sums of ``x`` per
+    slot."""
+    if want_sums:
+        cnt, part = _hist_rows(x, None, edges, True,
+                               "cp_histogram_batched_sums")
+        return cnt, part[:, 0]
     _check_data(x)
     rows, n = x.shape
     nedges = edges.shape[-1] if edges.dim() == 2 else 0
@@ -290,20 +314,32 @@ def _hist_multi(x: torch.Tensor, edges: torch.Tensor, key: str):
     return cnt
 
 
-def cp_histogram_multi(x: torch.Tensor, edges: torch.Tensor):
+def cp_histogram_multi(x: torch.Tensor, edges: torch.Tensor, *,
+                       want_sums: bool = False):
     """K3: slot counts of one shared ``x`` (n,) f32/bf16 against K realized
-    f32 ladders ``edges`` (K, nbins+1).  Returns ``(cnt, None)`` with
+    f32 ladders ``edges`` (K, nbins+1).  Returns ``(cnt, bsum)`` with
     ``cnt`` int32 (K, nbins + 2), slot layout as
-    ``ref.searchsorted_slots``."""
+    ``ref.searchsorted_slots``; ``bsum`` is ``None``, or with
+    ``want_sums`` (the K3s leg) the f32 sums of ``x`` per slot."""
+    if want_sums:
+        cnt, part = _whist_multi(x, None, edges, "cp_histogram_multi_sums",
+                                 True)
+        return cnt, part[:, 0]
     return _hist_multi(x, edges, "cp_histogram_multi"), None
 
 
-def cp_histogram(x: torch.Tensor, edges: torch.Tensor):
+def cp_histogram(x: torch.Tensor, edges: torch.Tensor, *,
+                 want_sums: bool = False):
     """The K=1 view of :func:`cp_histogram_multi`: ``x`` (n,), one ladder
-    ``edges`` (nbins+1,); returns ``(cnt, None)``, ``cnt`` (nbins + 2,)."""
+    ``edges`` (nbins+1,); returns ``(cnt, bsum)``, each (nbins + 2,)
+    (``bsum`` ``None`` without ``want_sums``)."""
     if edges.dim() != 1:
         raise ValueError(f"edges must be (nbins + 1,), got "
                          f"{tuple(edges.shape)}")
+    if want_sums:
+        cnt, part = _whist_multi(x, None, edges[None, :],
+                                 "cp_histogram_sums", True)
+        return cnt[0], part[0, 0]
     return _hist_multi(x, edges[None, :], "cp_histogram")[0], None
 
 
@@ -366,66 +402,89 @@ def cp_partials(x: torch.Tensor, y):
 # ---------------------------------------------------------------------------
 
 
-def whist_smem(group: int, warps: int, nedges: int) -> int:
-    """Shared bytes of a K1w (``group`` 1) or K3w block: the edges, one f32
-    mass row per warp and ladder, a 32-float stage per warp and the int
-    counts per ladder."""
+def whist_smem(group: int, warps: int, nedges: int, nrows: int = 1) -> int:
+    """Shared bytes of a K1w/K1s/K1ws (``group`` 1) or K3w/K3s/K3ws block:
+    the edges, ``nrows`` f32 rows (mass, sum, or both) per warp and ladder,
+    a stage of 32 floats per warp and row, and the int counts per
+    ladder."""
     nslots = nedges + 1
-    return 4 * (group * nedges + warps * group * nslots + warps * 32
-                + group * nslots)
+    return 4 * (group * nedges + warps * group * nslots * nrows
+                + warps * 32 * nrows + group * nslots)
 
 
-def whist_layout(k: int, nedges: int) -> tuple[int, int]:
-    """``(group, warps)`` of a weighted histogram block: the smallest power
-    of two of ladders that covers ``k`` up to ``HIST_MULTI_GROUP`` and
-    ``WHIST_MAX_WARPS`` warps, the group halved and then the warps halved
-    while the block overflows ``HIST_OPTIN_SMEM``.  Raises when one ladder
-    and one warp do not fit."""
+def whist_layout(k: int, nedges: int, nrows: int = 1) -> tuple[int, int]:
+    """``(group, warps)`` of a histogram block with ``nrows`` f32 rows per
+    slot: the smallest power of two of ladders that covers ``k`` up to
+    ``HIST_MULTI_GROUP`` and ``WHIST_MAX_WARPS`` warps, the group halved and
+    then the warps halved while the block overflows ``HIST_OPTIN_SMEM``.
+    Raises when one ladder and one warp do not fit."""
     group = 1
     while group < min(k, HIST_MULTI_GROUP):
         group *= 2
     warps = WHIST_MAX_WARPS
-    while group > 1 and whist_smem(group, warps, nedges) > HIST_OPTIN_SMEM:
+
+    def smem():
+        return whist_smem(group, warps, nedges, nrows)
+
+    while group > 1 and smem() > HIST_OPTIN_SMEM:
         group //= 2
-    while warps > 1 and whist_smem(group, warps, nedges) > HIST_OPTIN_SMEM:
+    while warps > 1 and smem() > HIST_OPTIN_SMEM:
         warps //= 2
-    if whist_smem(group, warps, nedges) > HIST_OPTIN_SMEM:
+    if smem() > HIST_OPTIN_SMEM:
         raise ValueError(f"{nedges - 1} bins need "
-                         f"{whist_smem(1, 1, nedges)} bytes of shared memory "
-                         f"per weighted block; a block holds at most "
-                         f"{HIST_OPTIN_SMEM}")
+                         f"{whist_smem(1, 1, nedges, nrows)} bytes of shared "
+                         f"memory per block with {nrows} f32 row(s) per "
+                         f"slot; a block holds at most {HIST_OPTIN_SMEM}")
     return group, warps
 
 
-def wcp_histogram_batched(x: torch.Tensor, w: torch.Tensor,
-                          edges: torch.Tensor):
-    """K1w: per-row slot counts and masses of ``x``/``w`` (B, n), each
-    f32/bf16, against realized f32 ``edges`` (B, nbins+1).  Returns
-    ``(cnt, wcnt, None)``: int32 counts and f32 masses, each
-    (B, nbins + 2), slot layout as ``ref.searchsorted_slots``."""
+def _hist_rows(x: torch.Tensor, w, edges: torch.Tensor, want_sums: bool,
+               key: str):
+    """Launch the row-wise histogram leg with f32 slot rows on ``x`` (B, n)
+    and ``edges`` (B, nbins+1): K1w (``w``, no sums), K1s (no ``w``, sums)
+    or K1ws (``w`` and sums); then reduce the per-block rows in a fixed
+    order; counts one launch under ``LAUNCHES[key]``.  Returns the int32
+    counts (B, nbins + 2) and the f32 rows (B, R, nbins + 2): the mass or
+    the sum (R = 1), or the mass and the sum (R = 2)."""
     _check_data(x)
-    _check_weights(w, x)
+    if w is not None:
+        _check_weights(w, x)
     rows, n = x.shape
     nedges = edges.shape[-1] if edges.dim() == 2 else 0
     if nedges < 1:
         raise ValueError(f"edges must be (B, nbins + 1), got "
                          f"{tuple(edges.shape)}")
     _check_side(edges, x, (rows, nedges), "edges")
-    _, warps = whist_layout(1, nedges)
+    nrows = 2 if w is not None and want_sums else 1
+    _, warps = whist_layout(1, nedges, nrows)
     nblk = fg_blocks(n)
     cnt = torch.zeros((rows, nedges + 1), dtype=torch.int32, device=x.device)
-    part = torch.empty((rows, nblk, nedges + 1), dtype=torch.float32,
+    part = torch.empty((rows, nblk, nrows, nedges + 1), dtype=torch.float32,
                        device=x.device)
     if rows > 0:
-        fn = _kernel_fn("hist_batched", x.dtype, w.dtype)
+        fn = _kernel_fn("hist_batched", x.dtype,
+                        None if w is None else w.dtype, sums=want_sums)
+        data = (x.data_ptr(),) if w is None else (x.data_ptr(), w.data_ptr())
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = fn(x.data_ptr(), w.data_ptr(), edges.data_ptr(),
-                    cnt.data_ptr(), part.data_ptr(), rows, n, nedges, nblk,
-                    warps, stream)
+            rc = fn(*data, edges.data_ptr(), cnt.data_ptr(), part.data_ptr(),
+                    rows, n, nedges, nblk, warps, stream)
         _raise_on(rc, "hist_batched")
-        LAUNCHES["wcp_histogram_batched"] += 1
-    return cnt, torch.sum(part, dim=1), None
+        LAUNCHES[key] += 1
+    return cnt, torch.sum(part, dim=1)
+
+
+def wcp_histogram_batched(x: torch.Tensor, w: torch.Tensor,
+                          edges: torch.Tensor, *, want_sums: bool = False):
+    """K1w: per-row slot counts and masses of ``x``/``w`` (B, n), each
+    f32/bf16, against realized f32 ``edges`` (B, nbins+1).  Returns
+    ``(cnt, wcnt, wsum)``: int32 counts and f32 masses, each
+    (B, nbins + 2), slot layout as ``ref.searchsorted_slots``; ``wsum`` is
+    ``None``, or with ``want_sums`` (the K1ws leg) the f32 sums of ``w*x``
+    per slot."""
+    key = "wcp_histogram_batched" + ("_sums" if want_sums else "")
+    cnt, part = _hist_rows(x, w, edges, want_sums, key)
+    return cnt, part[:, 0], (part[:, 1] if want_sums else None)
 
 
 def wcp_partials_batched(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor):
@@ -436,56 +495,68 @@ def wcp_partials_batched(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor):
     return _fg_batched(x, w, y, "wcp_partials_batched")
 
 
-def _whist_multi(x: torch.Tensor, w: torch.Tensor, edges: torch.Tensor,
-                 key: str):
-    """Launch K3w on ``x``/``w`` (n,) and ``edges`` (K, nbins+1), then
-    reduce the per-block masses in a fixed order; counts one launch under
-    ``LAUNCHES[key]``."""
+def _whist_multi(x: torch.Tensor, w, edges: torch.Tensor, key: str,
+                 want_sums: bool = False):
+    """Launch the shared-x histogram leg with f32 slot rows on ``x`` (n,)
+    and ``edges`` (K, nbins+1): K3w (``w``, no sums), K3s (no ``w``, sums)
+    or K3ws (``w`` and sums); then reduce the per-block rows in a fixed
+    order; counts one launch under ``LAUNCHES[key]``.  Returns the int32
+    counts (K, nbins + 2) and the f32 rows (K, R, nbins + 2), as
+    :func:`_hist_rows`."""
     _check_data(x, shared=True)
-    _check_weights(w, x)
+    if w is not None:
+        _check_weights(w, x)
     if edges.dim() != 2 or edges.shape[1] < 1:
         raise ValueError(f"edges must be (K, nbins + 1), got "
                          f"{tuple(edges.shape)}")
     k, nedges = edges.shape
     _check_side(edges, x, (k, nedges), "edges")
-    group, warps = whist_layout(k, nedges)
+    nrows = 2 if w is not None and want_sums else 1
+    group, warps = whist_layout(k, nedges, nrows)
     if -(-k // group) > MAX_ROWS:
         raise ValueError(f"at most {MAX_ROWS * group} ladders per launch, "
                          f"got {k}")
     nblk = fg_blocks(x.shape[0])
     cnt = torch.zeros((k, nedges + 1), dtype=torch.int32, device=x.device)
-    part = torch.empty((nblk, k, nedges + 1), dtype=torch.float32,
+    part = torch.empty((nblk, k, nrows, nedges + 1), dtype=torch.float32,
                        device=x.device)
     if k > 0:
-        fn = _kernel_fn("hist_multi", x.dtype, w.dtype)
+        fn = _kernel_fn("hist_multi", x.dtype,
+                        None if w is None else w.dtype, sums=want_sums)
+        data = (x.data_ptr(),) if w is None else (x.data_ptr(), w.data_ptr())
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = fn(x.data_ptr(), w.data_ptr(), edges.data_ptr(),
-                    cnt.data_ptr(), part.data_ptr(), x.shape[0], k, nedges,
-                    group, nblk, warps, stream)
+            rc = fn(*data, edges.data_ptr(), cnt.data_ptr(), part.data_ptr(),
+                    x.shape[0], k, nedges, group, nblk, warps, stream)
         _raise_on(rc, "hist_multi")
         LAUNCHES[key] += 1
     return cnt, torch.sum(part, dim=0)
 
 
 def wcp_histogram_multi(x: torch.Tensor, w: torch.Tensor,
-                        edges: torch.Tensor):
+                        edges: torch.Tensor, *, want_sums: bool = False):
     """K3w: slot counts and masses of one shared ``x``/``w`` (n,), each
     f32/bf16, against K realized f32 ladders ``edges`` (K, nbins+1).
-    Returns ``(cnt, wcnt, None)``: int32 counts and f32 masses, each
-    (K, nbins + 2), slot layout as ``ref.searchsorted_slots``."""
-    return (*_whist_multi(x, w, edges, "wcp_histogram_multi"), None)
+    Returns ``(cnt, wcnt, wsum)``: int32 counts and f32 masses, each
+    (K, nbins + 2), slot layout as ``ref.searchsorted_slots``; ``wsum`` is
+    ``None``, or with ``want_sums`` (the K3ws leg) the f32 sums of ``w*x``
+    per slot."""
+    key = "wcp_histogram_multi" + ("_sums" if want_sums else "")
+    cnt, part = _whist_multi(x, w, edges, key, want_sums)
+    return cnt, part[:, 0], (part[:, 1] if want_sums else None)
 
 
-def wcp_histogram(x: torch.Tensor, w: torch.Tensor, edges: torch.Tensor):
+def wcp_histogram(x: torch.Tensor, w: torch.Tensor, edges: torch.Tensor, *,
+                  want_sums: bool = False):
     """The K=1 view of :func:`wcp_histogram_multi`: ``x``/``w`` (n,), one
-    ladder ``edges`` (nbins+1,); returns ``(cnt, wcnt, None)``, each
-    (nbins + 2,)."""
+    ladder ``edges`` (nbins+1,); returns ``(cnt, wcnt, wsum)``, each
+    (nbins + 2,) (``wsum`` ``None`` without ``want_sums``)."""
     if edges.dim() != 1:
         raise ValueError(f"edges must be (nbins + 1,), got "
                          f"{tuple(edges.shape)}")
-    cnt, wcnt = _whist_multi(x, w, edges[None, :], "wcp_histogram")
-    return cnt[0], wcnt[0], None
+    key = "wcp_histogram" + ("_sums" if want_sums else "")
+    cnt, part = _whist_multi(x, w, edges[None, :], key, want_sums)
+    return cnt[0], part[0, 0], (part[0, 1] if want_sums else None)
 
 
 def wcp_partials_multi(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor):

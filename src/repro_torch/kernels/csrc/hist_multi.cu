@@ -1,13 +1,16 @@
 // K3: one shared array binned against K realized edge ladders in one read.
 //
 // Replaces the TPU kernel src/repro/kernels/cp_objective.py
-// `_hist_kernel_multi` (tile math `_bin_tile`) without per-slot sums, on
-// both of its legs:
-// - counting leg: x (n,) f32 or bf16, edges (K, nbins+1) f32, out int32
+// `_hist_kernel_multi` (tile math `_bin_tile`) on all four of its legs:
+// - counting leg (K3): x (n,) f32 or bf16, edges (K, nbins+1) f32, out int32
 //   counts (K, nbins+2);
+// - counting leg with per-slot sums (K3s, `want_sums`, the polish input):
+//   the counts and per-block f32 slot sums of x (nblk, K, nbins+2), summed
+//   over blocks by the wrapper;
 // - weighted leg (K3w): x and w (n,), each f32 or bf16 -> the int32 counts
-//   and per-block f32 slot masses (nblk, K, nbins+2), summed over blocks by
-//   the wrapper.
+//   and per-block f32 slot masses (nblk, K, nbins+2);
+// - weighted leg with per-slot sums (K3ws): the counts and per-block f32
+//   slot masses and sums of w*x (nblk, K, 2, nbins+2).
 // Slot layout per ladder as K1 (`hist_batched.cu`): slot 0 is x <= e_0
 // (with -inf), slot j is e_{j-1} < x <= e_j, slot nbins+1 is x > e_nbins
 // and NaN, exactly what the plain versions
@@ -42,12 +45,18 @@
 // - the kernel only COMPARES against the realized edges; integer atomics
 //   flush each block's histograms into the zeroed output, so the counts do
 //   not depend on the order of blocks.
-// Design, weighted leg (the masses decide every narrowing step, so they are
-// summed in an order fixed by n and the launch shape alone, never with
-// float atomics):
-// - each ladder's slot-0 and top-slot masses go to per-thread registers
-//   beside the slot-0 count (the top mass is accumulated, not subtracted: a
-//   difference of f32 sums is not the sum);
+// Design, legs with f32 slot rows (K3w, K3s, K3ws; one kernel specialized on
+// what an element adds: w, x, or the pair w and w*x, as in K1).  The masses
+// decide every narrowing step and the sums place the polish cut, so both
+// are summed in an order fixed by n and the launch shape alone, never with
+// float atomics:
+// - each ladder's slot-0 and top-slot row values go to per-thread registers
+//   beside the slot-0 count (the top slot's mass and sum are accumulated,
+//   not subtracted: a difference of f32 sums is not the sum; the counts
+//   keep the subtraction).  That is two registers per ladder and row, so
+//   K3ws holds 2 * 2 * G more than K3's compare loop;
+// - w*x is formed with __fmul_rn, so that no product is contracted into a
+//   sum;
 // - in-bracket elements go to per-warp f32 rows (one per ladder) in shared
 //   memory, grouped by (ladder, slot) with __match_any_sync as in K1's
 //   weighted leg: each lane takes the lowest ladder it is still inside per
@@ -56,10 +65,12 @@
 // - the block sums its warps' rows in warp order and writes one partial per
 //   ladder; a repeated ladder copies its first twin's partial (the same
 //   elements and weights);
-// - the per-warp rows take G * (nbins+2) * 4 bytes per warp (66 KB for 8
-//   warps at G = 16, 128 bins): the block opts in past 48 KB, up to 227 KB,
-//   and the wrapper halves first the group, then the warps per block, until
-//   the block fits (8192 bins: one ladder, four warps);
+// - the per-warp rows take G * (nbins+2) * 4 bytes per warp and row (66 KB
+//   for 8 warps at G = 16, 128 bins, one row; K3ws interleaves its (mass,
+//   sum) pair per (ladder, slot), twice that): the block opts in past
+//   48 KB, up to 227 KB, and the wrapper halves first the group, then the
+//   warps per block, until the block fits (8192 bins: one ladder, four
+//   warps with one row, two with two);
 // - the wrapper picks the block count from n alone and reduces the partials
 //   over blocks in a fixed order.
 // Built without fast-math, so denormals are compared exactly (no flush).
@@ -270,28 +281,50 @@ int launch(const void* x, const void* edges, void* cnt, long long n,
 }
 
 // ---------------------------------------------------------------------------
-// Weighted leg
+// Legs with f32 slot rows: weighted (K3w), per-slot sums (K3s, K3ws)
 // ---------------------------------------------------------------------------
 
 constexpr unsigned kFull = 0xffffffffu;
+
+// What an element adds to its slot's f32 rows besides its count, as in K1
+// (`hist_batched.cu`): its weight w (K3w), its value x (K3s), or w and w*x
+// (K3ws); kRows[L] rows per slot, interleaved per (ladder, slot).
+enum Leg { kMass = 0, kSum = 1, kMassSum = 2 };
+template <int L> struct LegRows { static constexpr int n = L == kMassSum ? 2 : 1; };
+
+// The row values of one element; an absent element carries zeros.  The
+// product is rounded on its own (__fmul_rn): no w*x is contracted into a
+// sum.
+template <int L>
+__device__ __forceinline__ void payload(float v, float wv, bool valid,
+                                        float (&p)[LegRows<L>::n]) {
+  if (L == kMass) p[0] = valid ? wv : 0.f;
+  if (L == kSum) p[0] = valid ? v : 0.f;
+  if (L == kMassSum) {
+    p[0] = valid ? wv : 0.f;
+    p[LegRows<L>::n - 1] = valid ? __fmul_rn(wv, v) : 0.f;
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   return v;
 }
 
-// As `compare`, and each binned ladder's slot-0 and top-slot masses in
-// registers.  A lane with no element brings v = NaN and w = 0: it adds 0 to
-// a top mass and nothing elsewhere, and the block's element count (which
-// gives the top counts) does not include it.
-template <int G, int U>
+// As `compare`, and each binned ladder's slot-0 and top-slot row values in
+// registers (accumulated, never a difference: a difference of f32 sums is
+// not the sum).  A lane with no element brings v = NaN and zero row
+// values: it adds 0 to a top slot and nothing elsewhere, and the block's
+// element count (which gives the top counts) does not include it.
+template <int G, int U, int R>
 __device__ __forceinline__ void wcompare(const float (&v)[U],
-                                         const float (&wv)[U],
+                                         const float (&p)[U][R],
                                          unsigned binned,
                                          const float (&lo)[G],
                                          const float (&hi)[G],
-                                         int (&below)[G], float (&mbelow)[G],
-                                         float (&mabove)[G],
+                                         int (&below)[G],
+                                         float (&pbelow)[G][R],
+                                         float (&pabove)[G][R],
                                          unsigned (&inside)[U]) {
 #pragma unroll
   for (int u = 0; u < U; ++u) inside[u] = 0;
@@ -303,8 +336,11 @@ __device__ __forceinline__ void wcompare(const float (&v)[U],
       const bool le_lo = v[u] <= lo[j];
       const bool le_hi = v[u] <= hi[j];
       below[j] += le_lo;
-      mbelow[j] += le_lo ? wv[u] : 0.f;
-      mabove[j] += le_hi ? 0.f : wv[u];
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        pbelow[j][c] += le_lo ? p[u][c] : 0.f;
+        pabove[j][c] += le_hi ? 0.f : p[u][c];
+      }
       inside[u] |= (unsigned)(!le_lo && le_hi) << j;
     }
   }
@@ -313,19 +349,21 @@ __device__ __forceinline__ void wcompare(const float (&v)[U],
 // The warp's in-bracket step for one element per lane.  Round by round,
 // each lane takes the lowest ladder it is still inside and finds its slot
 // there; lanes with the same (ladder, slot) key form a group, whose lowest
-// lane adds the group's weights, summed in lane order, to that entry of the
-// warp's rows and the group's size to the block's counts.  The rounds are
-// as many as the most ladders one element of the warp is inside (one in a
-// narrow sweep), not as many as the ladders the warp meets.  Every lane of
-// the warp must call it.
-__device__ __forceinline__ void warp_inside(float v, float wv,
+// lane adds the group's row values, each row summed in lane order, to that
+// entry of the warp's rows and the group's size to the block's counts.
+// The rounds are as many as the most ladders one element of the warp is
+// inside (one in a narrow sweep), not as many as the ladders the warp
+// meets.  Every lane of the warp must call it.
+template <int R>
+__device__ __forceinline__ void warp_inside(float v, const float (&p)[R],
                                             unsigned inside, const float* e,
                                             int nedges, float* rows,
                                             float* stage, int* hist,
                                             int lane) {
   const int nslots = nedges + 1;
   if (!__any_sync(kFull, inside != 0)) return;  // uniform over the warp
-  stage[lane] = wv;
+#pragma unroll
+  for (int c = 0; c < R; ++c) stage[c * 32 + lane] = p[c];
   __syncwarp();
   do {
     int key = -1;
@@ -336,21 +374,27 @@ __device__ __forceinline__ void warp_inside(float v, float wv,
     }
     const unsigned grp = __match_any_sync(kFull, key);
     if (key >= 0 && lane == __ffs(grp) - 1) {
-      float acc = 0.f;
-      for (unsigned m = grp; m; m &= m - 1) acc += stage[__ffs(m) - 1];
-      rows[key] += acc;
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        float acc = 0.f;
+        for (unsigned m = grp; m; m &= m - 1)
+          acc += stage[c * 32 + __ffs(m) - 1];
+        rows[key * R + c] += acc;
+      }
       atomicAdd(&hist[key], __popc(grp));
     }
   } while (__any_sync(kFull, inside != 0));
   __syncwarp();
 }
 
-template <typename T, typename W, int G>
+// K3w / K3s / K3ws.  `w` is not read on the K3s leg (it may be null).
+template <typename T, typename W, int G, int L>
 __global__ void __launch_bounds__(kThreads)
 whist_multi_kernel(const T* __restrict__ x, const W* __restrict__ w,
                    const float* __restrict__ edges, int* __restrict__ cnt,
-                   float* __restrict__ mass, long long n, int nladders,
+                   float* __restrict__ part, long long n, int nladders,
                    int nedges) {
+  constexpr int R = LegRows<L>::n;
   extern __shared__ float smem[];
   __shared__ int rep[G];  // ladder j is binned as ladder rep[j]
   __shared__ int total;   // elements this block read
@@ -359,12 +403,12 @@ whist_multi_kernel(const T* __restrict__ x, const W* __restrict__ w,
   const int first = blockIdx.y * G;
   const int nl = min(G, nladders - first);
   float* e = smem;                                  // G * nedges
-  float* rows = e + G * nedges;                     // nwarps * G * nslots
-  float* stage = rows + nwarps * G * nslots;        // nwarps * 32
-  int* hist = reinterpret_cast<int*>(stage + nwarps * 32);  // G * nslots
+  float* rows = e + G * nedges;                     // nwarps * G * nslots * R
+  float* stage = rows + nwarps * G * nslots * R;    // nwarps * 32 * R
+  int* hist = reinterpret_cast<int*>(stage + nwarps * 32 * R);  // G * nslots
   for (int i = threadIdx.x; i < nl * nedges; i += blockDim.x)
     e[i] = edges[(long long)first * nedges + i];
-  for (int i = threadIdx.x; i < nwarps * G * nslots; i += blockDim.x)
+  for (int i = threadIdx.x; i < nwarps * G * nslots * R; i += blockDim.x)
     rows[i] = 0.f;
   for (int i = threadIdx.x; i < nl * nslots; i += blockDim.x) hist[i] = 0;
   if (threadIdx.x == 0) total = 0;
@@ -382,7 +426,7 @@ whist_multi_kernel(const T* __restrict__ x, const W* __restrict__ w,
   }
   __syncthreads();
   unsigned binned = 0;  // bit j: ladder j exists and is the first of its kind
-  float lo[G], hi[G], mbelow[G], mabove[G];
+  float lo[G], hi[G], pbelow[G][R], pabove[G][R];
   int below[G];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
@@ -391,42 +435,47 @@ whist_multi_kernel(const T* __restrict__ x, const W* __restrict__ w,
     lo[j] = b ? e[j * nedges] : 0.f;
     hi[j] = b ? e[j * nedges + nedges - 1] : 0.f;
     below[j] = 0;
-    mbelow[j] = 0.f;
-    mabove[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      pbelow[j][c] = 0.f;
+      pabove[j][c] = 0.f;
+    }
   }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* wrows = rows + warp * G * nslots;
-  float* wstage = stage + warp * 32;
+  float* wrows = rows + warp * G * nslots * R;
+  float* wstage = stage + warp * 32 * R;
   int seen = 0;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   for (; __all_sync(kFull, i + (kUnroll - 1) * stride < n);
        i += kUnroll * stride) {
-    float v[kUnroll], wv[kUnroll];
+    float v[kUnroll], p[kUnroll][R];
     unsigned inside[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       v[u] = to_f32(x[i + u * stride]);
-      wv[u] = to_f32(w[i + u * stride]);
+      payload<L>(v[u], L == kSum ? 0.f : to_f32(w[i + u * stride]), true,
+                 p[u]);
     }
-    wcompare<G, kUnroll>(v, wv, binned, lo, hi, below, mbelow, mabove,
-                         inside);
+    wcompare<G, kUnroll, R>(v, p, binned, lo, hi, below, pbelow, pabove,
+                            inside);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      warp_inside(v[u], wv[u], inside[u], e, nedges, wrows, wstage, hist,
-                  lane);
+      warp_inside<R>(v[u], p[u], inside[u], e, nedges, wrows, wstage, hist,
+                     lane);
     seen += kUnroll;
   }
   for (; __any_sync(kFull, i < n); i += stride) {
     const bool valid = i < n;
     const float v[1] = {valid ? to_f32(x[i]) : __int_as_float(0x7fc00000)};
-    const float wv[1] = {valid ? to_f32(w[i]) : 0.f};
+    float p[1][R];
+    payload<L>(v[0], valid && L != kSum ? to_f32(w[i]) : 0.f, valid, p[0]);
     unsigned inside[1];
-    wcompare<G, 1>(v, wv, binned, lo, hi, below, mbelow, mabove, inside);
-    warp_inside(v[0], wv[0], inside[0], e, nedges, wrows, wstage, hist,
-                lane);
+    wcompare<G, 1, R>(v, p, binned, lo, hi, below, pbelow, pabove, inside);
+    warp_inside<R>(v[0], p[0], inside[0], e, nedges, wrows, wstage, hist,
+                   lane);
     seen += valid;
   }
 
@@ -438,12 +487,15 @@ whist_multi_kernel(const T* __restrict__ x, const W* __restrict__ w,
   for (int j = 0; j < G; ++j) {
     if (!((binned >> j) & 1u)) continue;
     const int b = warp_sum(below[j]);
-    const float mb = warp_sum(mbelow[j]);
-    const float ma = warp_sum(mabove[j]);
-    if (lane == 0) {
-      if (b) atomicAdd(&hist[j * nslots], b);
-      wrows[j * nslots] = mb;
-      wrows[j * nslots + nslots - 1] = ma;
+    if (lane == 0 && b) atomicAdd(&hist[j * nslots], b);
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const float pb = warp_sum(pbelow[j][c]);
+      const float pa = warp_sum(pabove[j][c]);
+      if (lane == 0) {
+        wrows[j * nslots * R + c] = pb;
+        wrows[(j * nslots + nslots - 1) * R + c] = pa;
+      }
     }
   }
   __syncthreads();
@@ -454,25 +506,34 @@ whist_multi_kernel(const T* __restrict__ x, const W* __restrict__ w,
     hj[nslots - 1] = total - counted;  // x > e_nbins, or NaN
   }
   __syncthreads();
+  // this block's partials: per ladder R rows of nslots, summed over warps
+  // in order; a repeated ladder copies its first twin's
   for (int k = threadIdx.x; k < nl * nslots; k += blockDim.x) {
     const int j = k / nslots;
     const int s = k - j * nslots;
     const int r = rep[j] * nslots + s;
     if (hist[r]) atomicAdd(&cnt[(long long)(first + j) * nslots + s], hist[r]);
-    float m = 0.f;
-    for (int wp = 0; wp < nwarps; ++wp) m += rows[wp * G * nslots + r];
-    mass[((long long)blockIdx.x * nladders + first + j) * nslots + s] = m;
+    float* out = part + ((long long)blockIdx.x * nladders + first + j) * R *
+                            nslots + s;
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      float m = 0.f;
+      for (int wp = 0; wp < nwarps; ++wp)
+        m += rows[(wp * G * nslots + r) * R + c];
+      out[c * nslots] = m;
+    }
   }
 }
 
-template <typename T, typename W, int G>
+template <typename T, typename W, int G, int L>
 int wlaunch_group(const void* x, const void* w, const void* edges, void* cnt,
-                  void* mass, long long n, int nladders, int nedges, int nblk,
+                  void* part, long long n, int nladders, int nedges, int nblk,
                   int warps, void* stream) {
+  constexpr int R = LegRows<L>::n;
   const int nslots = nedges + 1;
-  const size_t smem = (size_t)(G * nedges + warps * G * nslots + warps * 32 +
-                               G * nslots) * 4;
-  const auto kernel = whist_multi_kernel<T, W, G>;
+  const size_t smem = (size_t)(G * nedges + warps * G * nslots * R +
+                               warps * 32 * R + G * nslots) * 4;
+  const auto kernel = whist_multi_kernel<T, W, G, L>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -482,30 +543,30 @@ int wlaunch_group(const void* x, const void* w, const void* edges, void* cnt,
   kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(x), static_cast<const W*>(w),
       static_cast<const float*>(edges), static_cast<int*>(cnt),
-      static_cast<float*>(mass), n, nladders, nedges);
+      static_cast<float*>(part), n, nladders, nedges);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename W>
+template <typename T, typename W, int L>
 int wlaunch(const void* x, const void* w, const void* edges, void* cnt,
-            void* mass, long long n, int nladders, int nedges, int group,
+            void* part, long long n, int nladders, int nedges, int group,
             int nblk, int warps, void* stream) {
   switch (group) {
-    case 1: return wlaunch_group<T, W, 1>(x, w, edges, cnt, mass, n,
-                                          nladders, nedges, nblk, warps,
-                                          stream);
-    case 2: return wlaunch_group<T, W, 2>(x, w, edges, cnt, mass, n,
-                                          nladders, nedges, nblk, warps,
-                                          stream);
-    case 4: return wlaunch_group<T, W, 4>(x, w, edges, cnt, mass, n,
-                                          nladders, nedges, nblk, warps,
-                                          stream);
-    case 8: return wlaunch_group<T, W, 8>(x, w, edges, cnt, mass, n,
-                                          nladders, nedges, nblk, warps,
-                                          stream);
-    case 16: return wlaunch_group<T, W, 16>(x, w, edges, cnt, mass, n,
-                                            nladders, nedges, nblk, warps,
-                                            stream);
+    case 1: return wlaunch_group<T, W, 1, L>(x, w, edges, cnt, part, n,
+                                             nladders, nedges, nblk, warps,
+                                             stream);
+    case 2: return wlaunch_group<T, W, 2, L>(x, w, edges, cnt, part, n,
+                                             nladders, nedges, nblk, warps,
+                                             stream);
+    case 4: return wlaunch_group<T, W, 4, L>(x, w, edges, cnt, part, n,
+                                             nladders, nedges, nblk, warps,
+                                             stream);
+    case 8: return wlaunch_group<T, W, 8, L>(x, w, edges, cnt, part, n,
+                                             nladders, nedges, nblk, warps,
+                                             stream);
+    case 16: return wlaunch_group<T, W, 16, L>(x, w, edges, cnt, part, n,
+                                               nladders, nedges, nblk, warps,
+                                               stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -529,22 +590,57 @@ extern "C" int hist_multi_bf16(const void* x, const void* edges, void* cnt,
                                stream);
 }
 
-// Weighted leg, one entry per (x, w) type pair: `cnt` must be zeroed by the
-// caller; `mass` (nblk, K, nbins+2) is written whole; `group` (1, 2, 4, 8 or
-// 16) ladders and `warps` warps share a block.  Returns the first non-zero
-// CUDA error code of the set-up or the launch, else 0.
+// Weighted leg (K3w), one entry per (x, w) type pair: `cnt` must be zeroed
+// by the caller; `mass` (nblk, K, nbins+2) is written whole; `group` (1, 2,
+// 4, 8 or 16) ladders and `warps` warps share a block.  Returns the first
+// non-zero CUDA error code of the set-up or the launch, else 0.
 #define WHIST_MULTI(XN, XT, WN, WT)                                          \
   extern "C" int whist_multi_##XN##_##WN(                                    \
       const void* x, const void* w, const void* edges, void* cnt,            \
       void* mass, long long n, int nladders, int nedges, int group,          \
       int nblk, int warps, void* stream) {                                   \
-    return wlaunch<XT, WT>(x, w, edges, cnt, mass, n, nladders, nedges,      \
-                           group, nblk, warps, stream);                      \
+    return wlaunch<XT, WT, kMass>(x, w, edges, cnt, mass, n, nladders,       \
+                                  nedges, group, nblk, warps, stream);       \
   }
 WHIST_MULTI(f32, float, f32, float)
 WHIST_MULTI(f32, float, bf16, __nv_bfloat16)
 WHIST_MULTI(bf16, __nv_bfloat16, f32, float)
 WHIST_MULTI(bf16, __nv_bfloat16, bf16, __nv_bfloat16)
+
+// Counting leg with per-slot sums (K3s): `cnt` must be zeroed by the
+// caller; `sums` (nblk, K, nbins+2) f32 sums of x is written whole.
+extern "C" int shist_multi_f32(const void* x, const void* edges, void* cnt,
+                               void* sums, long long n, int nladders,
+                               int nedges, int group, int nblk, int warps,
+                               void* stream) {
+  return wlaunch<float, float, kSum>(x, nullptr, edges, cnt, sums, n,
+                                     nladders, nedges, group, nblk, warps,
+                                     stream);
+}
+
+extern "C" int shist_multi_bf16(const void* x, const void* edges, void* cnt,
+                                void* sums, long long n, int nladders,
+                                int nedges, int group, int nblk, int warps,
+                                void* stream) {
+  return wlaunch<__nv_bfloat16, float, kSum>(x, nullptr, edges, cnt, sums, n,
+                                             nladders, nedges, group, nblk,
+                                             warps, stream);
+}
+
+// Weighted leg with per-slot sums (K3ws): `part` (nblk, K, 2, nbins+2)
+// holds each block's f32 masses (row 0) and sums of w*x (row 1).
+#define WSHIST_MULTI(XN, XT, WN, WT)                                         \
+  extern "C" int wshist_multi_##XN##_##WN(                                   \
+      const void* x, const void* w, const void* edges, void* cnt,            \
+      void* part, long long n, int nladders, int nedges, int group,          \
+      int nblk, int warps, void* stream) {                                   \
+    return wlaunch<XT, WT, kMassSum>(x, w, edges, cnt, part, n, nladders,    \
+                                     nedges, group, nblk, warps, stream);    \
+  }
+WSHIST_MULTI(f32, float, f32, float)
+WSHIST_MULTI(f32, float, bf16, __nv_bfloat16)
+WSHIST_MULTI(bf16, __nv_bfloat16, f32, float)
+WSHIST_MULTI(bf16, __nv_bfloat16, bf16, __nv_bfloat16)
 
 extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -14,6 +14,11 @@ accumulate mass in f64, or the weighted certificates lie).
 
 Any other CUDA tensor reaches the kernel wrapper, which raises.  There is
 no fallback on error: a kernel that cannot run raises.
+
+The six histogram passes take ``want_sums``: ``False`` (plain binned
+sweeps) leaves the per-slot sums out (``None``); ``True`` (the polish, the
+only reader) adds them — the kernels' sums legs K1s/K3s (Σx) and K1ws/K3ws
+(Σw·x) on the card, the plain versions' sums elsewhere.
 """
 from __future__ import annotations
 
@@ -41,13 +46,16 @@ def fused_partials_batched(x: torch.Tensor, y: torch.Tensor):
     return ref.cp_partials_batched_ref(x, y)
 
 
-def fused_histogram_batched(x: torch.Tensor, edges: torch.Tensor):
+def fused_histogram_batched(x: torch.Tensor, edges: torch.Tensor, *,
+                            want_sums: bool = False):
     """Row-wise binned pass, counting leg: ``x`` (B, n), per-row realized
-    edges ``(B, nbins+1)`` -> ``(cnt, None)``, ``cnt`` int32
-    ``(B, nbins + 2)``."""
+    edges ``(B, nbins+1)`` -> ``(cnt, bsum)``, ``cnt`` int32
+    ``(B, nbins + 2)``, ``bsum`` the per-slot sums of ``x`` with
+    ``want_sums`` (else ``None``)."""
     if uses_kernel(x):
-        return cp_objective.cp_histogram_batched(x, edges)
-    return ref.cp_histogram_batched_ref(x, edges, want_sums=False)
+        return cp_objective.cp_histogram_batched(x, edges,
+                                                 want_sums=want_sums)
+    return ref.cp_histogram_batched_ref(x, edges, want_sums=want_sums)
 
 
 def fused_partials_multi(x: torch.Tensor, y: torch.Tensor):
@@ -58,13 +66,14 @@ def fused_partials_multi(x: torch.Tensor, y: torch.Tensor):
     return ref.cp_partials_multi_ref(x, y)
 
 
-def fused_histogram_multi(x: torch.Tensor, edges: torch.Tensor):
+def fused_histogram_multi(x: torch.Tensor, edges: torch.Tensor, *,
+                          want_sums: bool = False):
     """Shared-x binned pass, counting leg: ``x`` (n,) against K realized
-    ladders ``(K, nbins+1)`` -> ``(cnt, None)``, ``cnt`` int32
-    ``(K, nbins + 2)``."""
+    ladders ``(K, nbins+1)`` -> ``(cnt, bsum)``, ``cnt`` int32
+    ``(K, nbins + 2)``, ``bsum`` as in :func:`fused_histogram_batched`."""
     if uses_kernel(x):
-        return cp_objective.cp_histogram_multi(x, edges)
-    return ref.cp_histogram_multi_ref(x, edges, want_sums=False)
+        return cp_objective.cp_histogram_multi(x, edges, want_sums=want_sums)
+    return ref.cp_histogram_multi_ref(x, edges, want_sums=want_sums)
 
 
 def fused_partials(x: torch.Tensor, y):
@@ -74,12 +83,13 @@ def fused_partials(x: torch.Tensor, y):
     return ref.cp_partials_ref(x, y)
 
 
-def fused_histogram(x: torch.Tensor, edges: torch.Tensor):
+def fused_histogram(x: torch.Tensor, edges: torch.Tensor, *,
+                    want_sums: bool = False):
     """The K=1 view of :func:`fused_histogram_multi`: one ladder
-    ``(nbins+1,)`` -> ``(cnt, None)``, ``cnt`` ``(nbins + 2,)``."""
+    ``(nbins+1,)`` -> ``(cnt, bsum)``, each ``(nbins + 2,)``."""
     if uses_kernel(x):
-        return cp_objective.cp_histogram(x, edges)
-    return ref.cp_histogram_ref(x, edges, want_sums=False)
+        return cp_objective.cp_histogram(x, edges, want_sums=want_sums)
+    return ref.cp_histogram_ref(x, edges, want_sums=want_sums)
 
 
 def fused_weighted_partials_batched(x: torch.Tensor, w: torch.Tensor,
@@ -92,13 +102,16 @@ def fused_weighted_partials_batched(x: torch.Tensor, w: torch.Tensor,
 
 
 def fused_weighted_histogram_batched(x: torch.Tensor, w: torch.Tensor,
-                                     edges: torch.Tensor):
-    """Row-wise weighted binned pass without per-slot sums: ``x``/``w``
-    (B, n), per-row realized edges ``(B, nbins+1)`` -> ``(cnt, wcnt,
-    None)``, each ``(B, nbins + 2)``."""
+                                     edges: torch.Tensor, *,
+                                     want_sums: bool = False):
+    """Row-wise weighted binned pass: ``x``/``w`` (B, n), per-row realized
+    edges ``(B, nbins+1)`` -> ``(cnt, wcnt, wsum)``, each
+    ``(B, nbins + 2)``; ``wsum`` (the per-slot sums of ``w*x``) only with
+    ``want_sums``, else ``None``."""
     if uses_kernel_weighted(x, w):
-        return cp_objective.wcp_histogram_batched(x, w, edges)
-    return ref.wcp_histogram_batched_ref(x, w, edges, want_sums=False)
+        return cp_objective.wcp_histogram_batched(x, w, edges,
+                                                  want_sums=want_sums)
+    return ref.wcp_histogram_batched_ref(x, w, edges, want_sums=want_sums)
 
 
 def fused_weighted_partials_multi(x: torch.Tensor, w: torch.Tensor,
@@ -111,13 +124,16 @@ def fused_weighted_partials_multi(x: torch.Tensor, w: torch.Tensor,
 
 
 def fused_weighted_histogram_multi(x: torch.Tensor, w: torch.Tensor,
-                                   edges: torch.Tensor):
-    """Shared-x weighted binned pass without per-slot sums: ``x``/``w``
-    (n,) against K realized ladders ``(K, nbins+1)`` -> ``(cnt, wcnt,
-    None)``, each ``(K, nbins + 2)``."""
+                                   edges: torch.Tensor, *,
+                                   want_sums: bool = False):
+    """Shared-x weighted binned pass: ``x``/``w`` (n,) against K realized
+    ladders ``(K, nbins+1)`` -> ``(cnt, wcnt, wsum)``, each
+    ``(K, nbins + 2)``, ``wsum`` as in
+    :func:`fused_weighted_histogram_batched`."""
     if uses_kernel_weighted(x, w):
-        return cp_objective.wcp_histogram_multi(x, w, edges)
-    return ref.wcp_histogram_multi_ref(x, w, edges, want_sums=False)
+        return cp_objective.wcp_histogram_multi(x, w, edges,
+                                                want_sums=want_sums)
+    return ref.wcp_histogram_multi_ref(x, w, edges, want_sums=want_sums)
 
 
 def fused_weighted_partials(x: torch.Tensor, w: torch.Tensor, y):
@@ -129,9 +145,9 @@ def fused_weighted_partials(x: torch.Tensor, w: torch.Tensor, y):
 
 
 def fused_weighted_histogram(x: torch.Tensor, w: torch.Tensor,
-                             edges: torch.Tensor):
+                             edges: torch.Tensor, *, want_sums: bool = False):
     """The K=1 view of :func:`fused_weighted_histogram_multi`: one ladder
-    ``(nbins+1,)`` -> ``(cnt, wcnt, None)``, each ``(nbins + 2,)``."""
+    ``(nbins+1,)`` -> ``(cnt, wcnt, wsum)``, each ``(nbins + 2,)``."""
     if uses_kernel_weighted(x, w):
-        return cp_objective.wcp_histogram(x, w, edges)
-    return ref.wcp_histogram_ref(x, w, edges, want_sums=False)
+        return cp_objective.wcp_histogram(x, w, edges, want_sums=want_sums)
+    return ref.wcp_histogram_ref(x, w, edges, want_sums=want_sums)

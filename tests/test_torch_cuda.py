@@ -353,3 +353,156 @@ def test_strided_views_reach_the_weighted_kernels(cuda, method):
                                           w[:, : 1 << 16].cpu(), wks.cpu(),
                                           method="sort")
     assert torch.equal(res.value.cpu(), want.value)
+
+
+# ---------------------------------------------------------------------------
+# the per-slot sums legs K1s, K1ws, K3s, K3ws (want_sums, the polish input)
+# ---------------------------------------------------------------------------
+
+
+def _int_data(rows, n, seed, device):
+    """Integer-valued x in [-50, 50) with ±inf and NaN planted: every slot
+    sum of the finite values is exact in any order (totals far below
+    2^24), a NaN makes its slot's sum NaN, an inf its slot's inf."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-50, 50, (rows, n), generator=g, device=device).float()
+    x[:, :4] = torch.tensor([np.inf, -np.inf, np.nan, -0.0], device=device)
+    return x
+
+
+def _f32_chain(n):
+    """The longest chain of f32 additions a value goes through in a sums
+    leg: its thread's serial sum or its warp row's steps (one element per
+    thread and grid stride), a slot group (32), a warp shuffle (5), the
+    warps of a block (8), and the sum over the block partials."""
+    nblk = cp_objective.fg_blocks(n)
+    return -(-n // (nblk * 256)) + 32 + 5 + 8 + nblk
+
+
+def _sums_case(leg, x, w, edges):
+    """``(kernel outputs, plain outputs)`` of one sums leg; ``x`` (B, n)
+    for the row legs, (n,) for the shared-x legs."""
+    if leg == "K1s":
+        return (cp_objective.cp_histogram_batched(x, edges, want_sums=True),
+                ref.cp_histogram_batched_ref(x, edges, want_sums=True))
+    if leg == "K1ws":
+        return (cp_objective.wcp_histogram_batched(x, w, edges,
+                                                   want_sums=True),
+                ref.wcp_histogram_batched_ref(x, w, edges, want_sums=True))
+    if leg == "K3s":
+        return (cp_objective.cp_histogram_multi(x, edges, want_sums=True),
+                ref.cp_histogram_multi_ref(x, edges, want_sums=True))
+    return (cp_objective.wcp_histogram_multi(x, w, edges, want_sums=True),
+            ref.wcp_histogram_multi_ref(x, w, edges, want_sums=True))
+
+
+def _k1_edges(rows, device):
+    lo = torch.tensor([-3e38, -2.0, 0.25, -1e-40, -1e-3, 0.0, -60.0][:rows],
+                      device=device)
+    hi = torch.tensor([3e38, 2.0, float(np.nextafter(np.float32(0.25),
+                                                     np.float32(1))),
+                       1e-40, 2e-3, 0.0, 60.0][:rows], device=device)
+    return ref.bin_edges(lo, hi, 128).contiguous()
+
+
+SUMS_SHAPES = [("K1", (1, 100_003), 128), ("K1", (7, 5000), 128),
+               ("K3", 1, 128), ("K3", 16, 128), ("K3", 64, 128),
+               ("K3", 3, 8192)]
+
+
+def _sums_inputs(kind, shape, nbins, xdt, wdt, seed, device, integer):
+    if kind == "K1":
+        rows, n = shape
+        x = (_int_data(rows, n, seed, device) if integer
+             else torch.randn((rows, n), device=device))
+        edges = _k1_edges(rows, device)
+        if not integer:  # data-scale ladders on randn rows
+            edges = ref.bin_edges(x.amin(1), x.amax(1), nbins).contiguous()
+    else:
+        n = 100_003
+        x = (_int_data(1, n, seed, device)[0] if integer
+             else torch.randn(n, device=device))
+        edges = _ladders(shape, device, nbins)
+        if integer:  # and a ladder at the integer data's scale
+            edges[0] = ref.bin_edges(torch.tensor(-60.0, device=device),
+                                     torch.tensor(60.0, device=device),
+                                     nbins)
+    w = torch.randint(0, 4, x.shape, device=device).float()
+    return x.to(xdt), w.to(wdt), edges
+
+
+# (leg, x dtype, w dtype, shape): the counting sums legs read no w
+SUMS_CASES = [(leg, xdt, wdt, (kind, shape, nbins))
+              for kind, shape, nbins in SUMS_SHAPES
+              for leg in (f"{kind}s", f"{kind}ws")
+              for xdt, wdt in (WDTYPES if leg.endswith("ws")
+                               else WDTYPES[:2])]
+
+
+@pytest.mark.parametrize("leg,xdt,wdt,case", SUMS_CASES)
+def test_sums_legs_equal_plain_on_integers(cuda, leg, xdt, wdt, case):
+    """Integer x and w: counts, masses and sums bit for bit (NaN and ±inf
+    slots equal with equal_nan)."""
+    kind, shape, nbins = case
+    x, w, edges = _sums_inputs(kind, shape, nbins, xdt, wdt, 7, cuda, True)
+    got, want = _sums_case(leg, x, w, edges)
+    assert len(got) == len(want) and got[-1] is not None
+    assert torch.equal(got[0], want[0])
+    for g, v in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, v, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("leg,case", [(leg, (kind, shape, nbins))
+                                      for kind, shape, nbins in SUMS_SHAPES
+                                      for leg in (f"{kind}s", f"{kind}ws")])
+def test_sums_legs_near_f64_on_randn(cuda, leg, case):
+    """randn x (dense weights): each slot sum within the chain bound of the
+    f64 plain version, relative to the slot's sum of |values|; two
+    launches give identical bits."""
+    kind, shape, nbins = case
+    x, w, edges = _sums_inputs(kind, shape, nbins, torch.float32,
+                               torch.float32, 8, cuda, False)
+    w = torch.rand(x.shape, device=cuda) + 0.5
+    got, _ = _sums_case(leg, x, w, edges)
+    again, _ = _sums_case(leg, x, w, edges)
+    for a, b in zip(got, again):
+        assert torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+    wd = w.double() if leg.endswith("ws") else torch.ones_like(x).double()
+    # the f64 plain sums of w*x, and of w*|x| (the error scale)
+    plain = (ref.wcp_histogram_batched_ref if kind == "K1"
+             else ref.wcp_histogram_multi_ref)
+    exact = plain(x.double(), wd, edges)[2]
+    scale = plain(x.double(), wd * torch.sign(x.double()), edges)[2]
+    bound = _f32_chain(x.shape[-1]) * 2.0 ** -24 * scale
+    assert bool(((got[-1].double() - exact).abs() <= bound).all())
+
+
+def test_polish_and_warm_paths_launch_their_kernels(cuda):
+    """binned_polish launches only the sums legs, one per sweep, and
+    answers as the sort does; a warm median on unchanged data takes one
+    plain sweep and certifies."""
+    n = 1 << 18
+    x = torch.randn(n, device=cuda)
+    w = torch.randint(0, 2, (n,), device=cuda).float()
+    qs = [0.1, 0.5, 0.9]
+    for call, key in (
+            (lambda m: selection.median(x, method=m),
+             "cp_histogram_batched_sums"),
+            (lambda m: selection.quantiles(x, qs, method=m),
+             "cp_histogram_multi_sums"),
+            (lambda m: selection.weighted_median(x, w, method=m),
+             "wcp_histogram_batched_sums"),
+            (lambda m: selection.weighted_quantiles(x, w, qs, method=m),
+             "wcp_histogram_multi_sums")):
+        cp_objective.reset_launches()
+        res = call("binned_polish")
+        launched = {k: v for k, v in cp_objective.LAUNCHES.items() if v}
+        assert launched == {key: int(res.iters.max())}, launched
+        assert torch.equal(res.value, call("sort").value)
+    cold = selection.median(x)
+    cp_objective.reset_launches()
+    warm = selection.median(x, prior=cold)
+    assert int(warm.iters) == 1 and int(warm.status) == selection.EXACT_HIT
+    assert cp_objective.LAUNCHES["cp_histogram_batched"] == 1
+    assert float(warm.value) == float(cold.value)
