@@ -4,10 +4,19 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
+or, to time this tree against another one (a parent commit unpacked with
+``git archive`` into a git-ignored directory), each in its own process,
+in turns (other, this, this, other, ...):
+
+    python3 chip_smoke.py --compare build/parent
+
 Phases (any failure raises and the script exits non-zero):
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
+   ``sum_blocks.cu``, which sums K2's and K4's block partials, against
+   ``torch.sum`` at the shapes of the main path's launches (within its f32
+   chain of the f64 sum; two launches and each column alone bit for bit);
 2. K1 (row histogram) against its plain version on the card, counts equal
    bit for bit, at the main path's (1, 2^27) and (64, 2^20) and at an n
    that is a multiple of no grid stride (``K1_SHAPES``), f32 and bf16,
@@ -23,8 +32,11 @@ Phases (any failure raises and the script exits non-zero):
    per block, past 48 KB of shared memory) and with K = 1 through
    ``cp_histogram``;
 5. K4 (shared-x multi-pivot partials) against its plain version at
-   (2^27, 16), (50,000, 16) and (``N_ODD``, 64), and K = 1 through
-   ``cp_partials``: counts equal, sums within ``SUM_RTOL``;
+   (2^27, 16), (50,000, 16), (``N_ODD``, 64) and (``N_ODD``, 17) with
+   inf, -inf and NaN pivots (the kernel's general path), and K = 1
+   through ``cp_partials``: counts equal, sums within ``SUM_RTOL``; on
+   each, two launches, a permutation of the pivots and every pivot alone
+   (K = 1 and K2's row kernel) give the same bits, sums included;
 6. the port's main paths at full size through their public entry points,
    each value checked against ``torch.sort`` on the card and the launch
    counts of each run read from zero: ``median`` of n = 2^27 f32 (binned
@@ -35,7 +47,10 @@ Phases (any failure raises and the script exits non-zero):
    16 targets), ``multi_order_statistic(method='cp')`` at 2^27 and
    ``quantiles`` auto at n = 50,000 (cp leg, K4);
 7. timings with CUDA events (medians of repeated runs after warm-up): each
-   kernel, its plain version and its bound; the median, ``select_rows``
+   kernel, its plain version and its bound (bytes at 3.35 TB/s, or f32
+   lane operations at the card's lane rate, ``lane_ops_per_s``), K4 at
+   K in ``KS_SWEEP``; the 16-target ``multi_order_statistic(method='cp')``
+   with its loop and finalize; the median, ``select_rows``
    and the 16 quantiles end to end with ``torch.kthvalue`` / ``torch.sort``
    (plus a gather) as yardsticks that the port never calls, and the 16
    quantiles also against 16 separate ``order_statistic`` calls; a
@@ -47,7 +62,9 @@ Phases (any failure raises and the script exits non-zero):
    and whole zero-mass slots included); with dense random weights the
    masses within ``f32_chain`` * 2^-24 of the f64 plain version (the
    longest chain of f32 additions in the kernel); each weighted kernel
-   launched twice on the same dense input gives identical bits;
+   launched twice on the same dense input gives identical bits; K4w also
+   at (``N_ODD``, 17) with non-finite pivots, with the launch identities
+   of phase 5 (against K2w) on integer and dense weights;
 9. the weighted paths at full size through their public entry points, the
    launch counts of each run read from zero and only the weighted kernels
    allowed to launch: ``weighted_median`` of n = 2^27 f32 with 0/1 weights
@@ -60,10 +77,14 @@ Phases (any failure raises and the script exits non-zero):
    50,000 (K2w), ``weighted_multi_order_statistic(method='cp')`` at 16
    targets (K4w);
 10. weighted timings: each weighted kernel, its plain version and its
-   bound; the weighted median, rows batch and 16 quantiles end to end with
-   a breakdown, against ``torch.sort`` + a gather of the weights +
-   ``torch.cumsum`` + ``torch.searchsorted`` (the yardstick; the port
-   never calls it).
+   bound, K4w at K in ``KS_SWEEP``; the weighted median, rows batch and 16
+   quantiles end to end with a breakdown, against ``torch.sort`` + a
+   gather of the weights + ``torch.cumsum`` + ``torch.searchsorted`` (the
+   yardstick; the port never calls it); the 16-target
+   ``weighted_multi_order_statistic(method='cp')`` with its loop and
+   finalize; K4's and K4w's registers (ptxas) and SASS instructions per
+   (element, pivot) (``cuobjdump``) in this run's build, and their issue
+   bound.
 
 11. the per-slot sums legs K1s, K1ws (``hist_batched.cu``) and K3s, K3ws
    (``hist_multi.cu``) against their plain versions at the K1 and K3
@@ -94,13 +115,18 @@ Phases (any failure raises and the script exits non-zero):
 
 The line before the last two is ``{"kernels": [...]}`` (all twelve kernel
 legs: K1-K4, their weighted legs K1w-K4w, and the sums legs K1s, K1ws,
-K3s, K3ws); then the ``nvidia-smi`` name and power limit; the last line is
+K3s, K3ws; and ``sum_blocks``, the block sums of K2 and K4); then the
+``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
+import functools
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -111,11 +137,14 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: HBM3 bandwidth and f32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 bandwidth.  The f32 work of these kernels
+# (subtracts, compares, selects, adds and multiplies, no FMA) runs one
+# operation per lane and clock: 4 schedulers x 32 lanes per SM, at the
+# card's maximum SM clock (`lane_ops_per_s`, ~33.5e12/s on an H100 SXM;
+# the data sheet's 67e12 counts an FMA as two)
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+LANES_PER_SM = 128
 # K2 sums: f32 same-sign terms reduced in another order than torch.sum.
 # A thread adds at most n / (nblk * 256) = 512 terms in sequence at 2^27,
 # so either order is within ~512 * 2^-24 = 3e-5 relative of the exact sum.
@@ -131,6 +160,14 @@ K2_SHAPES = ((1, N_BIG, 3), (ROWS, N_ROW, 4), (1, N_SMALL, 12),
              (1, N_ODD, 13))
 # the shared-x multi-k path: 16 quantile levels (1/17 .. 16/17)
 QS16 = np.arange(1, 17) / 17
+# K4 and K4w timed at these numbers of pivots (evenly spaced quantiles)
+KS_SWEEP = (1, 4, 16, 64)
+# --compare: runs per tree, in turns (other, this, this, other)
+COMPARE_ROUNDS = 2
+# f32 lane operations per (element, pivot) that K4 cannot do without: a
+# subtract, two compares (each also gives its complement), two sum adds
+# and two count adds; K4w a multiply and two more sum adds
+K4_OPS, K4W_OPS = 7, 10
 SPECIALS = [float("inf"), float("-inf"), float("nan"), 0.0, -0.0, 1e-44,
             -1e-44, 1e-39, -3e-39, 3e38, -3e38]
 
@@ -301,6 +338,30 @@ def check_k3(cpo, ref) -> dict:
     return {"max_abs_err": float(worst)}
 
 
+# pivots that are not finite: they take K4's and K4w's general path
+NONFINITE = [float("inf"), float("-inf"), float("nan")]
+
+
+def pivot_identities(name, multi, one, rows, y, label) -> None:
+    """A pivot's partials do not depend on its launch: ``multi(y)`` twice,
+    on a permutation of ``y``, and each pivot alone through the K=1 view
+    ``one`` and through the row kernel ``rows`` (K2 or K2w) give the same
+    bits, sums included."""
+    got = multi(y)
+    if not all(same_bits(a, b) for a, b in zip(got, multi(y))):
+        raise AssertionError(f"{name}: two launches differ: {label}")
+    perm = torch.randperm(y.numel(), generator=gen(y.numel()), device=DEVICE)
+    if not all(same_bits(a[perm], b) for a, b in zip(got, multi(y[perm]))):
+        raise AssertionError(f"{name}: permuted pivots differ: {label}")
+    for j in range(y.numel()):
+        for view, vname in ((one, "K=1"), (rows, "row kernel")):
+            alone = view(y[j:j + 1])
+            if not all(same_bits(a[j:j + 1], b.reshape(1))
+                       for a, b in zip(got, alone)):
+                raise AssertionError(f"{name}: pivot {j} alone ({vname}) "
+                                     f"differs from its entry: {label}")
+
+
 def check_k4(cpo, ref) -> dict:
     worst_abs, worst_rel = 0.0, 0.0
 
@@ -323,7 +384,7 @@ def check_k4(cpo, ref) -> dict:
                           device=DEVICE)
     for dtype in (torch.float32, torch.bfloat16):
         for n, k, seed in ((N_BIG, 16, 23), (N_SMALL, 16, 24),
-                           (N_ODD, 64, 25)):
+                           (N_ODD, 64, 25), (N_ODD, 17, 26)):
             for special in (True, False):
                 if special:
                     x = special_data(1, n, seed)[0]
@@ -333,6 +394,8 @@ def check_k4(cpo, ref) -> dict:
                 x = x.to(dtype)
                 y = pivots[torch.arange(k, device=DEVICE) % pivots.numel()]
                 y[-1] = x[12345].float()  # a pivot on a data value
+                if k == 17:  # the first group of 16 holds non-finite pivots
+                    y[:3] = torch.tensor(NONFINITE, device=DEVICE)
                 label = f"n={n} K={k} {dtype} special={special}"
                 compare(cpo.cp_partials_multi(x, y),
                         ref.cp_partials_multi_ref(x, y), label)
@@ -340,11 +403,61 @@ def check_k4(cpo, ref) -> dict:
                 compare([g[None] for g in got],
                         ref.cp_partials_multi_ref(x, y[-1:]),
                         label + " K=1")
+                pivot_identities(
+                    "K4", lambda yy: cpo.cp_partials_multi(x, yy),
+                    lambda yy: cpo.cp_partials(x, yy[0]),
+                    lambda yy: cpo.cp_partials_batched(x[None], yy),
+                    y, label)
                 del x
     log(f"K4 fg_multi == plain version: counts bit for bit, sums within "
         f"rtol {SUM_RTOL} (worst {worst_rel:.3g}), (n, K) (2^27, 16), "
-        f"({N_SMALL}, 16), ({N_ODD}, 64) and K=1 (cp_partials), f32 and "
-        f"bf16, with and without inf/NaN/denormals")
+        f"({N_SMALL}, 16), ({N_ODD}, 64), ({N_ODD}, 17) with inf/-inf/NaN "
+        f"pivots, and K=1 (cp_partials), f32 and bf16, with and without "
+        f"inf/NaN/denormals; two launches, permuted pivots and each pivot "
+        f"alone (K=1 and K2) bit for bit")
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel}
+
+
+def sum_blocks_shapes(cpo):
+    """(outer, nblk, inner) of the block partials that K2 and K4 hand to
+    ``sum_blocks``: K4 and K4w at 16 pivots of 2^27 and K4 of N_SMALL (the
+    multi-k main path), K2 at one row of 2^27 and of N_SMALL and K2w at one
+    row of 2^27 (the scalar and weighted main paths), and K2 on the rows
+    batch (64, 2^20)."""
+    big, small = cpo.fg_blocks(N_BIG), cpo.fg_blocks(N_SMALL)
+    return ((1, big, 16 * 2), (1, big, 16 * 4), (1, small, 16 * 2),
+            (1, big, 2), (1, small, 2), (ROWS, cpo.fg_blocks(N_ROW), 2),
+            (1, big, 4))
+
+
+def check_sum_blocks(cpo) -> dict:
+    """``sum_blocks`` against ``torch.sum`` (the call it took the place of)
+    and the f64 sum on non-negative partials, as K2's and K4's are: within
+    the f32 chain of the exact sum (a lane's serial adds, then 5 shuffle
+    levels); two launches, and each column summed alone, the same bits."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for i, shape in enumerate(sum_blocks_shapes(cpo)):
+        part = torch.rand(shape, generator=gen(200 + i), device=DEVICE) * 1e3
+        got = cpo._sum_blocks(part)
+        exact = part.double().sum(1)
+        err = (got.double() - exact).abs()
+        worst_abs = max(worst_abs, float(err.max()))
+        rel = float((err / exact).max())
+        worst_rel = max(worst_rel, rel)
+        chain = -(-shape[1] // 32) + 5
+        if rel > chain * 2.0 ** -24:
+            raise AssertionError(f"sum_blocks {shape}: relative error {rel} "
+                                 f"past its chain of {chain} adds")
+        if not same_bits(got, cpo._sum_blocks(part)):
+            raise AssertionError(f"sum_blocks {shape}: two launches differ")
+        for j in range(0, shape[2], max(1, shape[2] // 4)):
+            alone = cpo._sum_blocks(part[:, :, j:j + 1].contiguous())
+            if not same_bits(got[:, j:j + 1], alone):
+                raise AssertionError(f"sum_blocks {shape}: column {j} alone "
+                                     f"differs")
+    log(f"sum_blocks == f64 sum within its f32 chain (worst relative "
+        f"{worst_rel:.3g}) at {sum_blocks_shapes(cpo)}; two launches and "
+        f"columns alone bit for bit")
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel}
 
 
@@ -694,10 +807,13 @@ def check_k4w(cpo, ref) -> dict:
     chk = WeightedCheck("K4w")
     pivots = torch.tensor([0.0, 1e-3, -0.5, 1e-44, 3e38, 1.5, -2.0, 0.7],
                           device=DEVICE)
-    for n, k, seed in ((N_BIG, 16, 71), (N_SMALL, 16, 72), (N_ODD, 64, 73)):
+    for n, k, seed in ((N_BIG, 16, 71), (N_SMALL, 16, 72), (N_ODD, 64, 73),
+                       (N_ODD, 17, 74)):
         x32, wi32, wd32 = (t[0] for t in weighted_inputs(1, n, seed))
         y = pivots[torch.arange(k, device=DEVICE) % pivots.numel()]
         y[-1] = x32[12345]  # a pivot on a data value
+        if k == 17:  # the first group of 16 holds non-finite pivots
+            y[:3] = torch.tensor(NONFINITE, device=DEVICE)
         for xdt, wdt in WDTYPES:
             x, wi = x32.to(xdt), wi32.to(wdt)
             label = f"n={n} K={k} {xdt} {wdt}"
@@ -708,21 +824,31 @@ def check_k4w(cpo, ref) -> dict:
             one = cpo.wcp_partials(x, wi, y[-1])
             chk.exact([g[None] for g in one[2:]],
                       [v[-1:] for v in want[2:]], label + " K=1")
+            pivot_identities(
+                "K4w", lambda yy: cpo.wcp_partials_multi(x, wi, yy),
+                lambda yy: cpo.wcp_partials(x, wi, yy[0]),
+                lambda yy: cpo.wcp_partials_batched(x[None], wi[None], yy),
+                y, label)
         rtol = f32_chain(cpo, n) * 2.0 ** -24
         got = cpo.wcp_partials_multi(x32, wd32, y)
         exact = ref.wcp_partials_multi_ref(x32, wd32.double(), y)
         for g, v in zip(got[2:4], exact[2:4]):
             chk.dense(g, v, rtol, f"n={n} K={k}")
         chk.sums(got[:2], ref.wcp_partials_multi_ref(x32, wd32, y)[:2])
-        chk.repeat(lambda: cpo.wcp_partials_multi(x32, wd32, y),
-                   f"n={n} K={k}")
+        pivot_identities(
+            "K4w", lambda yy: cpo.wcp_partials_multi(x32, wd32, yy),
+            lambda yy: cpo.wcp_partials(x32, wd32, yy[0]),
+            lambda yy: cpo.wcp_partials_batched(x32[None], wd32[None], yy),
+            y, f"n={n} K={k} dense weights")
         del x32, wi32, wd32, x, wi
     log(f"K4w fg_multi weighted == plain version: counts and masses bit for "
         f"bit with integer weights, dense masses within "
         f"{chk.dense_bound:.3g} of f64 (worst {chk.dense_rel:.3g}), objective "
-        f"sums within rtol {SUM_RTOL} (worst {chk.sum_rel:.3g}), two launches "
-        f"identical, (n, K) (2^27, 16), ({N_SMALL}, 16), ({N_ODD}, 64) and "
-        f"K=1 (wcp_partials), x and w each f32 and bf16")
+        f"sums within rtol {SUM_RTOL} (worst {chk.sum_rel:.3g}), (n, K) "
+        f"(2^27, 16), ({N_SMALL}, 16), ({N_ODD}, 64), ({N_ODD}, 17) with "
+        f"inf/-inf/NaN pivots, and K=1 (wcp_partials), x and w each f32 and "
+        f"bf16; two launches, permuted pivots and each pivot alone (K=1 and "
+        f"K2w) bit for bit, integer and dense weights")
     return chk.result()
 
 
@@ -758,9 +884,13 @@ def drive_only(sel, cpo, label, fn, check, expect_kernel):
     if bool((res.status == sel.NOT_CONVERGED).any()):
         raise AssertionError(f"{label}: NOT_CONVERGED")
     moved = {k for k, v in launches.items() if v}
-    if moved != {expect_kernel}:
-        raise AssertionError(f"{label}: launched {moved}, expected only "
-                             f"{expect_kernel}")
+    # a partials pass sums its block partials with sum_blocks
+    block_sums = launches[expect_kernel] if "partials" in expect_kernel else 0
+    if (moved - {"sum_blocks"} != {expect_kernel}
+            or launches["sum_blocks"] != block_sums):
+        raise AssertionError(f"{label}: launched {launches}, expected only "
+                             f"{expect_kernel} (and sum_blocks as often on "
+                             f"a partials leg)")
     if launches[expect_kernel] != int(res.iters.max()):
         raise AssertionError(f"{label}: {launches[expect_kernel]} launches "
                              f"for {int(res.iters.max())} sweeps or passes")
@@ -947,12 +1077,15 @@ def weighted_timings(sel, cpo, ref, obj) -> dict:
             bound=bound(nbytes + N_BIG * 4 + c.numel() * 4,
                         ops + 2 * N_BIG * distinct),
             distinct_ladders=distinct)
-    y16 = torch.sort(x).values[ks.long() - 1]
+    xs = torch.sort(x).values
+    y16 = xs[ks.long() - 1]
     out["k4w"] = dict(
         ms=cuda_ms(lambda: cpo.wcp_partials_multi(x, wd, y16), reps=20),
         plain_ms=cuda_ms(lambda: ref.wcp_partials_multi_ref(x, wd, y16),
                          reps=1, rounds=3),
-        bound=bound(io + 16 * 4 + nblk * 16 * 24, 16 * 16 * N_BIG))
+        bound=bound(io + 16 * 4 + nblk * 16 * 24, K4W_OPS * 16 * N_BIG))
+    out["k4w_sweep_ms"] = k_sweep(sel, cpo, xs, x, wd)
+    del xs
 
     # end to end, against the library way: sort + gather + cumsum +
     # searchsorted
@@ -1507,10 +1640,23 @@ def sums_timings(sel, cpo, ref, obj, tick) -> dict:
     return out
 
 
+@functools.cache
+def lane_ops_per_s() -> float:
+    """The card's f32 lane rate, one operation per lane and clock: SMs x
+    LANES_PER_SM x the maximum SM clock (``nvidia-smi``).  It is also the
+    issue rate of SASS instructions counted per lane."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * LANES_PER_SM * float(mhz) * 1e6
+
+
 def bound(nbytes, ops):
-    """The least time for ``nbytes`` of traffic and ``ops`` f32 operations,
-    and which of the two bounds it."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    """The least time for ``nbytes`` of traffic and ``ops`` f32 operations
+    (one lane each), and which of the two bounds it."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / lane_ops_per_s() * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -1600,6 +1746,68 @@ def k3_work(x, edges, cnt):
                     + sum(inside.values()) * steps)
 
 
+def k_sweep(sel, cpo, xs, x, w=None) -> dict:
+    """K4 (K4w with ``w``) on the 2^27 elements of ``x`` at K in
+    ``KS_SWEEP`` pivots, evenly spaced quantiles of ``xs`` (x sorted)."""
+    out = {}
+    for k in KS_SWEEP:
+        yk = xs[sel.ranks_from_quantiles(np.arange(1, k + 1) / (k + 1),
+                                         N_BIG).to(DEVICE).long() - 1]
+        yk = yk.float().contiguous()
+        if w is None:
+            out[k] = cuda_ms(lambda: cpo.cp_partials_multi(x, yk), reps=10)
+        else:
+            out[k] = cuda_ms(lambda: cpo.wcp_partials_multi(x, w, yk),
+                             reps=10)
+    return out
+
+
+def cp_solves(sel, obj) -> dict:
+    """The two 16-target cutting-plane solves of 2^27 f32 end to end, each
+    with its loop (stats pass included: one K4 or K4w pass per iteration
+    for all targets), its shared finalize, its passes and its NOT_CONVERGED
+    count: ``multi_order_statistic`` on the data of ``timings_multi``
+    (``multi_cp``) and of ``multi_k_path`` (``multi_cp_main``), and
+    ``weighted_multi_order_statistic`` with the 0/1 weights of
+    ``weighted_timings`` (``wmulti_cp``) and of ``weighted_path``
+    (``wmulti_cp_main``)."""
+    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
+    cap = sel._default_cap_rows(N_BIG)
+    out = {}
+    for label, xseed, wseed in (("multi_cp", 32, None),
+                                ("multi_cp_main", 31, None),
+                                ("wmulti_cp", 91, 93),
+                                ("wmulti_cp_main", 81, 82)):
+        x = torch.randn(N_BIG, generator=gen(xseed), device=DEVICE)
+        if wseed is None:
+            ev = obj.SharedEvaluator(x, ks)
+
+            def call():
+                return sel.multi_order_statistic(x, ks, method="cp")
+        else:
+            w01 = (torch.rand(N_BIG, generator=gen(wseed), device=DEVICE)
+                   < 1 / 16).float()
+            wks = torch.tensor(QS16 * float(w01.sum()), dtype=torch.float32,
+                               device=DEVICE)
+            ev = obj.SharedEvaluator(x, wks, weights=w01)
+
+            def call():
+                return sel.weighted_multi_order_statistic(x, w01, wks,
+                                                          method="cp")
+        out[f"{label}_ms"] = cuda_ms(call, reps=1, rounds=3)
+        out[f"{label}_loop_ms"] = cuda_ms(lambda: sel.bracket_loop_batched(
+            ev, method="cp", cap=cap), reps=1, rounds=3)
+        s, xmin, xmax = sel.bracket_loop_batched(ev, method="cp", cap=cap)
+        w = {"w": ev.w.to(ev.k.dtype)} if ev.weighted else {}
+        out[f"{label}_finalize_ms"] = cuda_ms(lambda: sel._finalize_shared(
+            ev.x, ev.k, s, cap, xmin, xmax, **w), reps=1, rounds=3)
+        out[f"{label}_passes"] = int(s.iters.max())
+        out[f"{label}_not_converged"] = int(
+            (call().status == sel.NOT_CONVERGED).sum())
+        del x, ev, s
+    return out
+
+
 def timings_multi(sel, cpo, ref, obj) -> dict:
     """K3 and K4 at K = 16 on n = 2^27, and the 16 quantiles end to end."""
     out = {}
@@ -1622,14 +1830,18 @@ def timings_multi(sel, cpo, ref, obj) -> dict:
                 x, e, want_sums=False), reps=1, rounds=3),
             bound=bound(*k3_work(x, e, cnt)),
             distinct_ladders=len({r.numpy().tobytes() for r in e.cpu()}))
-    # K4 at 16 pivots on the data's quantiles
-    y = torch.sort(x).values[ks.long() - 1]
+    # K4 at 16 pivots on the data's quantiles, and at K in KS_SWEEP
+    xs = torch.sort(x).values
+    y = xs[ks.long() - 1]
     nblk = cpo.fg_blocks(N_BIG)
     out["k4"] = dict(
         ms=cuda_ms(lambda: cpo.cp_partials_multi(x, y), reps=20),
         plain_ms=cuda_ms(lambda: ref.cp_partials_multi_ref(x, y), reps=1,
                          rounds=3),
-        bound=bound(N_BIG * 4 + 16 * 4 + nblk * 16 * 16, 7 * 16 * N_BIG))
+        bound=bound(N_BIG * 4 + 16 * 4 + nblk * 16 * 16,
+                    K4_OPS * 16 * N_BIG))
+    out["k4_sweep_ms"] = k_sweep(sel, cpo, xs, x)
+    del xs
 
     # end to end
     out["quantiles_ms"] = cuda_ms(lambda: sel.quantiles(x, QS16), reps=1,
@@ -1640,9 +1852,6 @@ def timings_multi(sel, cpo, ref, obj) -> dict:
     out["sixteen_order_statistic_ms"] = cuda_ms(
         lambda: [sel.order_statistic(x, k) for k in ks_host], reps=1,
         rounds=3, warmup=1)
-    out["multi_cp_ms"] = cuda_ms(
-        lambda: sel.multi_order_statistic(x, ks, method="cp"), reps=1,
-        rounds=3)
 
     # where the time goes: stats pass, sweep loop (which includes the stats
     # pass) and the shared finalize (16 sequential passes over x)
@@ -1658,10 +1867,321 @@ def timings_multi(sel, cpo, ref, obj) -> dict:
     return out
 
 
+_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}
+
+
+def fg_multi_instance(mangled: str):
+    """The mangled name of ``fg_multi_kernel<T, W, G>`` -> "T/W/G" (W "-"
+    on the counting leg), or None for another function."""
+    m = re.search(r"fg_multi_kernelI(f|13__nv_bfloat16)"
+                  r"(N\w*9NoWeightsE|f|13__nv_bfloat16|S\w*_)Li(\d+)EE",
+                  mangled)
+    if not m:
+        return None
+    t, w, g = m.groups()
+    w = t if w.startswith("S") else w  # a substitution repeats T
+    w = "-" if "NoWeights" in w else _TYPES[w]
+    return f"{_TYPES[t]}/{w}/{g}"
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes per fg_multi kernel instance, from the
+    ``-Xptxas -v`` output of its build."""
+    rows, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = fg_multi_instance(m.group(1))
+            if entry:
+                rows[entry] = {}
+        elif entry and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            rows[entry]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif entry and "Used" in line and "registers" in line:
+            rows[entry]["registers"] = int(re.search(
+                r"Used (\d+) registers", line).group(1))
+    return rows
+
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                   r"(.*?);")
+
+
+def sass_loops(so: Path) -> dict:
+    """Per fg_multi kernel instance: the loops of its SASS (``cuobjdump
+    -sass``; backward branches, to a label or to an address), largest
+    first, each as (instructions in the body, opcode counts)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True, timeout=300, check=True)
+    funcs, cur = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            cur.append(("label", m.group(1)))
+            continue
+        m = _INSN.search(line)
+        if m:
+            cur.append((int(m.group(1), 16), m.group(3), m.group(4)))
+    out = {}
+    for fname, items in funcs.items():
+        inst = fg_multi_instance(fname)
+        if inst is None:
+            continue
+        targets, insns, pending = {}, [], []
+        for it in items:
+            if it[0] == "label":
+                pending.append(it[1])
+                continue
+            for lab in pending + [it[0]]:
+                targets[lab] = len(insns)
+            pending = []
+            insns.append(it)
+        loops = []
+        for j, (_, op, rest) in enumerate(insns):
+            if not op.startswith("BRA"):
+                continue
+            m = re.search(r"\((\.L_x_\d+)\)|(0x[0-9a-f]+)", rest)
+            if not m:
+                continue
+            start = targets.get(m.group(1) or int(m.group(2), 16))
+            if start is None or start > j:
+                continue
+            body = [o.split(".")[0] for _, o, _ in insns[start:j + 1]
+                    if o != "NOP"]
+            counts = {}
+            for o in body:
+                counts[o] = counts.get(o, 0) + 1
+            loops.append((len(body), dict(sorted(
+                counts.items(), key=lambda kv: -kv[1]))))
+        out[inst] = sorted(loops, key=lambda lp: -lp[0])
+    return out
+
+
+def sass_g16(lib: Path) -> dict:
+    """Per G = 16 fg_multi instance: its largest loops, and for each
+    unrolled main loop (one per path, the tail loop left out) the batch U
+    it loads (U elements, and U weights) and its SASS instructions per
+    (element, pivot), body / (16 U)."""
+    out = {}
+    for inst, lps in sass_loops(lib).items():
+        if not inst.endswith("/16") or not lps:
+            continue
+        main = [lp for lp in lps if lp[0] >= lps[0][0] // 2]
+        per_load = 1 if "/-/" in inst else 2
+        unroll = [max(1, ops.get("LDG", 0) // per_load) for _, ops in main]
+        out[inst] = {"loops": [n for n, _ in lps[:4]], "unroll": unroll,
+                     "per_element_pivot": [n / (u * 16) for (n, _), u in
+                                           zip(main, unroll)],
+                     "main_loop_ops": [ops for _, ops in main]}
+    return out
+
+
+def fg_multi_build(_build) -> dict:
+    """Registers and spills (ptxas; only when this process built the
+    library) and SASS instructions per (element, pivot) of the G = 16 f32
+    instances of K4 and K4w, and the issue bound at K = 16, n = 2^27: the
+    finite-pivot path's count (the path the timings take) over the lane
+    rate."""
+    regs = ptxas_report(_build.build_log.get("fg_multi", ""))
+    sass = sass_g16(_build.library_path("fg_multi"))
+    out = {}
+    for key, inst in (("k4", "f32/-/16"), ("k4w", "f32/f32/16")):
+        per = sass[inst]["per_element_pivot"]
+        out[key] = {
+            **regs.get(inst, {}),
+            "sass_per_element_pivot": {"general": max(per),
+                                       "finite_pivots": min(per)},
+            "sass_main_loop_ops": sass[inst]["main_loop_ops"],
+            "issue_bound_ms": min(per) * 16 * N_BIG / lane_ops_per_s()
+            * 1e3}
+    return out
+
+
+def sum_blocks_timing(cpo) -> dict:
+    """``sum_blocks`` at the largest shape of the main path (K4w's 16
+    pivots on 2^27), against ``torch.sum`` over the block axis, which is
+    both its plain version and the library call for the same sums."""
+    part = torch.rand(sum_blocks_shapes(cpo)[1], generator=gen(210),
+                      device=DEVICE)
+    outer, nblk, inner = part.shape
+    return dict(ms=cuda_ms(lambda: cpo._sum_blocks(part), reps=50),
+                plain_ms=cuda_ms(lambda: torch.sum(part, dim=1), reps=50),
+                bound=bound(part.numel() * 4 + outer * inner * 4,
+                            outer * inner * (nblk - 1)),
+                shape=list(part.shape))
+
+
+def compare_times(sel, cpo, obj, _build) -> dict:
+    """What ``--compare`` reads from each tree: the two cp solves
+    (``cp_solves``); K2 and K2w at one pivot on 2^27; K4 and K4w at K in
+    ``KS_SWEEP`` with x and w each f32 and bf16; whether each of 16 pivots
+    alone gets the same bits as among the 16, at 1024 blocks with dense
+    weights; and fg_multi's build report."""
+    out = {"cp": cp_solves(sel, obj)}
+    x = torch.randn(N_BIG, generator=gen(32), device=DEVICE)
+    wd = dense_weights(N_BIG, 92)
+    y0 = torch.zeros(1, device=DEVICE)
+    out["k2_ms"] = cuda_ms(lambda: cpo.cp_partials_batched(x[None], y0),
+                           reps=20)
+    out["k2w_ms"] = cuda_ms(lambda: cpo.wcp_partials_batched(
+        x[None], wd[None], y0), reps=20)
+    xs = torch.sort(x).values
+    for xdt in (torch.float32, torch.bfloat16):
+        out[f"k4_{xdt}_ms"] = k_sweep(sel, cpo, xs, x.to(xdt))
+    for xdt, wdt in WDTYPES[:3]:
+        out[f"k4w_{xdt}_{wdt}_ms"] = k_sweep(sel, cpo, xs, x.to(xdt),
+                                             wd.to(wdt))
+    del xs, x, wd
+    n = (1 << 23) + 3
+    xi = special_data(1, n, 26)[0]
+    wi = dense_weights(n, 27)
+    y = torch.sort(xi).values[
+        sel.ranks_from_quantiles(QS16, n).to(DEVICE).long() - 1]
+    out["alone_equals_among_16"] = {}
+    for key, multi in (("k4", lambda yy: cpo.cp_partials_multi(xi, yy)),
+                       ("k4w", lambda yy: cpo.wcp_partials_multi(xi, wi,
+                                                                 yy))):
+        got = multi(y)
+        out["alone_equals_among_16"][key] = all(
+            same_bits(a[j:j + 1], b) for j in range(16)
+            for a, b in zip(got, multi(y[j:j + 1])))
+    del xi, wi
+    # K4's and K4w's outputs on data with the SPECIALS, finite and
+    # non-finite pivots, every group size and a ragged tail, for
+    # compare_outputs
+    x = special_data(1, N_ODD, 25)[0]
+    wint = torch.randint(0, 8, (N_ODD,), generator=gen(28),
+                         device=DEVICE).float()
+    wd = dense_weights(N_ODD, 29)
+    piv = torch.tensor([0.0, 1e-3, -0.5, 1e-44, 3e38, 1.5, -2.0, 0.7, -0.0,
+                        -1e-39, 2.5, -3e38], device=DEVICE)
+    out["outputs"] = {}
+    for k in (1, 5, 16, 17, 64):
+        y = piv[torch.arange(k, device=DEVICE) % piv.numel()].clone()
+        y[-1] = x[12345]
+        for pset in ("finite", "nonfinite"):
+            if pset == "nonfinite":
+                y[0] = NONFINITE[k % 3]
+            for leg, got in (("k4", cpo.cp_partials_multi(x, y)),
+                             ("k4w int", cpo.wcp_partials_multi(x, wint, y)),
+                             ("k4w dense", cpo.wcp_partials_multi(x, wd, y))):
+                out["outputs"][f"{leg} K={k} {pset}"] = [
+                    t.tolist() for t in got]
+    try:
+        out["build"] = fg_multi_build(_build)
+    except Exception as e:  # a tree whose build this parser does not read
+        out["build"] = f"not read: {e!r}"
+    return out
+
+
+def compare_outputs(a: dict, b: dict) -> dict:
+    """Two trees' ``compare_times`` outputs: whether the counts (and the
+    masses with integer weights) are equal, how many sums carry the same
+    bits, and the largest relative difference of the others."""
+    exact, same, total, worst = True, 0, 0, 0.0
+    for case, outs in a.items():
+        nsums = 2 if case.startswith("k4 ") else 4
+        for i, (u, v) in enumerate(zip(outs, b[case])):
+            u, v = np.array(u), np.array(v)
+            if i >= nsums or ("int" in case and i < 4):
+                exact &= bool(np.array_equal(u, v, equal_nan=True))
+                continue
+            u32, v32 = u.astype(np.float32), v.astype(np.float32)
+            bits = (u32.view(np.int32) == v32.view(np.int32)) | (
+                np.isnan(u32) & np.isnan(v32))
+            same += int(bits.sum())
+            total += bits.size
+            fin = np.isfinite(u) & np.isfinite(v) & ~bits
+            if fin.any():
+                worst = max(worst, float(np.max(
+                    np.abs(u[fin] - v[fin]) / np.abs(v[fin]))))
+            if (~fin & ~bits).any():  # a non-finite sum that differs
+                worst = float("inf")
+    return {"counts_and_integer_masses_equal": exact,
+            "sums_same_bits": f"{same}/{total}",
+            "sums_max_rel_diff": worst}
+
+
+def _merge(runs):
+    """Runs of one tree -> each number as its median and its runs (a key
+    missing from a run, such as the registers of a build that run did not
+    make, is merged over the runs that have it)."""
+    v0 = runs[0]
+    if isinstance(v0, dict):
+        keys = dict.fromkeys(k for r in runs for k in r)
+        return {k: _merge([r[k] for r in runs if k in r]) for k in keys}
+    if isinstance(v0, (int, float)) and not isinstance(v0, bool):
+        return {"median": statistics.median(runs), "runs": runs}
+    return v0 if all(r == v0 for r in runs) else runs
+
+
+def compare(other: Path, smi: str) -> None:
+    """Time this tree against ``other`` (a copy of the repository, e.g. a
+    parent commit unpacked with ``git archive``): one process per run, each
+    with its tree's package and kernel build, in turns (other, this, this,
+    other, ...); prints and writes ``chiprun_out/compare.json``."""
+    trees = {"other": other.resolve() / "src", "this": ROOT / "src"}
+    for src in trees.values():
+        if not (src / "repro_torch").is_dir():
+            raise SystemExit(f"no repro_torch package under {src}")
+    order = []
+    for r in range(COMPARE_ROUNDS):
+        order += ["other", "this"] if r % 2 == 0 else ["this", "other"]
+    runs = {name: [] for name in trees}
+    out = ROOT / "chiprun_out"
+    out.mkdir(parents=True, exist_ok=True)
+    raw = open(out / "compare_runs.jsonl", "w")
+    for name in order:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--times-of", str(trees[name])],
+                              capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            log(proc.stdout[-4000:] + proc.stderr[-8000:])
+            raise SystemExit(f"the {name} tree's run failed "
+                             f"(exit {proc.returncode})")
+        runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        raw.write(json.dumps({"tree": name, **runs[name][-1]}) + "\n")
+        raw.flush()
+        log(f"{name} run {len(runs[name])}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    outputs = {k: [r.pop("outputs") for r in v] for k, v in runs.items()}
+    for name, outs in outputs.items():
+        if any(json.dumps(o) != json.dumps(outs[0]) for o in outs[1:]):
+            raise SystemExit(f"the {name} tree's outputs differ from run to "
+                             f"run")
+    line = json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi,
+                       "trees": {k: str(v) for k, v in trees.items()},
+                       "order": order,
+                       "outputs": compare_outputs(outputs["this"][0],
+                                                  outputs["other"][0]),
+                       "results": {k: _merge(v) for k, v in runs.items()}})
+    raw.close()
+    (out / "compare.json").write_text(line + "\n")
+    print(line, flush=True)
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--compare", type=Path, metavar="TREE",
+                    help="time this tree against the repository copy TREE "
+                         "instead of running the checks")
+    ap.add_argument("--times-of", type=Path, metavar="SRC",
+                    help="print, as one JSON line, what --compare reads, "
+                         "with the package under SRC")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: "
                          "torch.cuda.is_available() is false")
+    sys.path.insert(0, str(args.times_of or ROOT / "src"))
     from repro_torch.core import objective as obj
     from repro_torch.core import selection as sel
     from repro_torch.core import stream
@@ -1674,6 +2194,13 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
+    if args.compare:
+        compare(args.compare, smi)
+        return
+    if args.times_of:
+        _build.build_all()
+        print(json.dumps(compare_times(sel, cpo, obj, _build)), flush=True)
+        return
     log(f"device: {name} | {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     t_build = _build.build_all()
@@ -1684,6 +2211,7 @@ def main() -> None:
                 log(f"  ptxas {src}: {line.strip()}")
 
     t0 = time.perf_counter()
+    sb_check = check_sum_blocks(cpo)
     k1_check = check_k1(cpo, ref)
     k2_check = check_k2(cpo, ref)
     k3_check = check_k3(cpo, ref)
@@ -1709,17 +2237,32 @@ def main() -> None:
                        ("wcp_partials_multi", weighted)):
         if count[key] == 0:
             raise AssertionError(f"{key} never launched on its main path")
+    # every partials pass (K2, K4 and their weighted legs) sums its block
+    # partials with one sum_blocks launch
+    paths = (launches, multi, weighted)
+    sb_launches = sum(d["sum_blocks"] for d in paths)
+    passes = sum(v for d in paths for k, v in d.items() if "partials" in k)
+    if sb_launches == 0 or sb_launches != passes:
+        raise AssertionError(f"sum_blocks launched {sb_launches} times on "
+                             f"the main paths for {passes} partials passes")
 
     t0 = time.perf_counter()
     tm = timings(sel, cpo, ref, obj)
     tmm = timings_multi(sel, cpo, ref, obj)
     tw = weighted_timings(sel, cpo, ref, obj)
+    tcp = cp_solves(sel, obj)
+    tsb = sum_blocks_timing(cpo)
     log(f"timings took {time.perf_counter() - t0:.1f} s")
     log("timings (ms, " + name + ", " + smi + "): " + json.dumps(tm))
     log("multi-k timings (ms, " + name + ", " + smi + "): "
         + json.dumps(tmm))
     log("weighted timings (ms, " + name + ", " + smi + "): "
         + json.dumps(tw))
+    log("16-target cp solves (ms, " + name + ", " + smi + "): "
+        + json.dumps(tcp))
+    log("sum_blocks (ms, " + name + ", " + smi + "): " + json.dumps(tsb))
+    fgm = fg_multi_build(_build)
+    log(f"K4/K4w build (G = 16, f32): " + json.dumps(fgm))
 
     t0 = time.perf_counter()
     s_checks = [*check_sums_rows(cpo, ref), *check_sums_multi(cpo, ref)]
@@ -1795,6 +2338,12 @@ def main() -> None:
          "bound_ms": tmm["k4"]["bound"][0], "bound_by": tmm["k4"]["bound"][1],
          "library_ms": None,
          "shape": "(2^27,) f32, K=16 pivots",
+         **fgm["k4"],
+         "k_sweep_ms": tmm["k4_sweep_ms"],
+         "design": "each (element, pivot) term a predicated add behind "
+                   "compares that give a predicate and its complement, "
+                   "counts in f32; the next 8 elements loaded while 8 are "
+                   "summed; two blocks of 8 warps per SM",
          "nearest_library": "none: no PyTorch call returns the partials of "
                             "K pivots from one read of the array"},
     ]
@@ -1823,6 +2372,14 @@ def main() -> None:
                "bound_ms": tw[tkey]["bound"][0],
                "bound_by": tw[tkey]["bound"][1], "library_ms": None,
                "shape": shape, "nearest_library": lib}
+        if key == "wcp_partials_multi":
+            row.update(**fgm["k4w"],
+                       k_sweep_ms=tw["k4w_sweep_ms"],
+                       design="one product w*d per (element, pivot), each "
+                              "sum a predicated add, the two counts packed "
+                              "in one int; the next 8 elements and weights "
+                              "loaded while 8 are summed; two blocks of 8 "
+                              "warps per SM")
         if key == "wcp_histogram_batched":
             row["narrow_bracket_ms"] = tw["k1w"]["narrow_ms"]
         if key == "wcp_histogram_multi":
@@ -1872,6 +2429,20 @@ def main() -> None:
                        narrow_sweep_bound_ms=n["bound"][0],
                        narrow_sweep_distinct_ladders=n["distinct_ladders"])
         kernels.append(row)
+    kernels.append(
+        {"name": "sum_blocks (block sums of K2, K2w, K4, K4w)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sum_blocks.cu",
+         "replaces": "src/repro/kernels/cp_objective.py:268",
+         "replaces_also": "src/repro/kernels/cp_objective.py:301",
+         "launches": sb_launches, **sb_check,
+         "ms": tsb["ms"], "plain_ms": tsb["plain_ms"],
+         "bound_ms": tsb["bound"][0], "bound_by": tsb["bound"][1],
+         "library_ms": tsb["plain_ms"],
+         "shape": f"{tuple(tsb['shape'])} f32 block partials (K4w, 16 "
+                  f"pivots of 2^27)",
+         "nearest_library": "torch.sum over the block axis, which is also "
+                            "the plain version (so library_ms is plain_ms)"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

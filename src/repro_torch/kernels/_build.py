@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("hist_batched", "fg_batched", "hist_multi", "fg_multi")
+SOURCES = ("hist_batched", "fg_batched", "hist_multi", "fg_multi",
+           "sum_blocks")
 # no --use_fast_math: denormals must survive (no flush-to-zero), and the
 # kernels' comparisons and sums must follow IEEE f32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

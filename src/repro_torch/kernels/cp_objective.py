@@ -28,7 +28,11 @@ f32.  Every f32 sum — the masses that decide the weighted narrowing and
 the per-slot sums that place the polish cut included — comes from
 per-block partials reduced over blocks here in a fixed order, with a block
 count that depends on ``n`` alone, so the same input gives the same bits
-from run to run.
+from run to run.  K2's and K4's block sums go through
+a fifth kernel, ``csrc/sum_blocks.cu`` (:func:`_sum_blocks`, its own
+``LAUNCHES`` entry ``sum_blocks``), whose order depends on the block count
+alone, so a pivot's partials are the same bits at any K and through either
+kernel.
 
 Each wrapper checks what the kernel takes and raises on anything else,
 allocates the outputs, launches on the current stream, raises on a
@@ -54,7 +58,8 @@ LAUNCHES = {"cp_histogram_batched": 0, "cp_partials_batched": 0,
             "wcp_histogram": 0, "wcp_partials": 0,
             "cp_histogram_batched_sums": 0, "cp_histogram_multi_sums": 0,
             "cp_histogram_sums": 0, "wcp_histogram_batched_sums": 0,
-            "wcp_histogram_multi_sums": 0, "wcp_histogram_sums": 0}
+            "wcp_histogram_multi_sums": 0, "wcp_histogram_sums": 0,
+            "sum_blocks": 0}
 
 # K1: blocks resident per SM that the grid aims to fill (integer atomics make
 # the counts independent of the block count, so it may follow the card)
@@ -101,6 +106,7 @@ _SIGNATURES = {
     "shist_multi": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
     "wshist_multi": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
                      _P],
+    "sum_blocks": [_P, _P, _I64, _I32, _I64, _P],
 }
 _fns: dict = {}
 
@@ -189,6 +195,25 @@ def _check_side(t: torch.Tensor, x: torch.Tensor, shape, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _sum_blocks(part: torch.Tensor) -> torch.Tensor:
+    """Sum f32 per-block partials ``(outer, nblk, inner)`` over the block
+    axis with ``csrc/sum_blocks.cu``, in an order set by ``nblk`` alone (so
+    a pivot's sums do not depend on the other pivots of its launch, nor on
+    whether K2 or K4 measured it); returns ``(outer, inner)``."""
+    outer, nblk, inner = part.shape
+    # every output is written (a block sum of zero blocks is +0)
+    out = torch.empty((outer, inner), dtype=torch.float32, device=part.device)
+    if out.numel() > 0:
+        fn = _kernel_fn("sum_blocks", torch.float32)
+        with torch.cuda.device(part.device):
+            stream = torch.cuda.current_stream(part.device).cuda_stream
+            rc = fn(part.data_ptr(), out.data_ptr(), outer, nblk, inner,
+                    stream)
+        _raise_on(rc, "sum_blocks")
+        LAUNCHES["sum_blocks"] += 1
+    return out
+
+
 def hist_blocks_per_row(rows: int, n: int, device) -> int:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_row = -(-sms * HIST_BLOCKS_PER_SM // rows)
@@ -259,7 +284,7 @@ def _fg_batched(x: torch.Tensor, w, y: torch.Tensor, key: str):
                     rows, n, nblk, stream)
         _raise_on(rc, "fg_batched")
         LAUNCHES[key] += 1
-    s = torch.sum(fsum, dim=1)
+    s = _sum_blocks(fsum)
     c = torch.sum(cnt, dim=1, dtype=torch.int32)
     return (*s.unbind(1), *c.unbind(1))
 
@@ -370,7 +395,7 @@ def _fg_multi(x: torch.Tensor, w, y: torch.Tensor, key: str):
                     x.shape[0], k, nblk, stream)
         _raise_on(rc, "fg_multi")
         LAUNCHES[key] += 1
-    s = torch.sum(fsum, dim=0)
+    s = _sum_blocks(fsum.view(1, nblk, k * nsums)).view(k, nsums)
     c = torch.sum(cnt, dim=0, dtype=torch.int32)
     return (*s.unbind(1), *c.unbind(1))
 

@@ -286,6 +286,99 @@ def test_weighted_kernels_repeat_bit_for_bit(cuda):
     torch.testing.assert_close(wcnt.double(), exact, rtol=1e-4, atol=0)
 
 
+# K4 and K4w: a pivot's partials do not depend on its launch
+
+K4_PIVOTS = [0.0, 1e-3, -0.5, 1e-44, 3e38, 1.5, -2.0, 0.7, -0.0, -1e-39,
+             2.5, -3e38, 0.25, -1.0, 1e-30, 4.0]
+NONFINITE = [float("inf"), float("-inf"), float("nan")]
+
+
+def _k4_call(weighted, x, w):
+    if weighted:
+        return lambda y: cp_objective.wcp_partials_multi(x, w, y)
+    return lambda y: cp_objective.cp_partials_multi(x, y)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["K4", "K4w"])
+@pytest.mark.parametrize("nonfinite", [False, True],
+                         ids=["finite", "nonfinite"])
+def test_multi_partials_ignore_pivot_order_and_company(cuda, weighted,
+                                                        nonfinite):
+    """16 pivots twice, permuted, and each alone (K = 1): the same bits,
+    sums included, with dense weights on 1024 blocks (the most a launch
+    has; a block-sum order that followed K showed here).  Non-finite
+    pivots send their group down the general path, and a permutation
+    mixes the two paths' pivots."""
+    n = (1 << 23) + 3
+    assert cp_objective.fg_blocks(n) == cp_objective.FG_MAX_BLOCKS
+    x = _data(1, n, 9, cuda)[0]
+    w = _dense_weights(n, 9, cuda)
+    y = torch.tensor(K4_PIVOTS, device=cuda)
+    y[-1] = x[12345]
+    if nonfinite:
+        y[3:6] = torch.tensor(NONFINITE, device=cuda)
+    call = _k4_call(weighted, x, w)
+    got, again = call(y), call(y)
+    perm = torch.randperm(16, generator=torch.Generator(device=cuda)
+                          .manual_seed(3), device=cuda)
+    permuted = call(y[perm])
+    for a, b, c in zip(got, again, permuted):
+        assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(a[perm]), _bits(c))
+    for j in range(16):
+        for a, b in zip(got, call(y[j:j + 1])):
+            assert torch.equal(_bits(a[j:j + 1]), _bits(b))
+
+
+@pytest.mark.parametrize("outer,nblk,inner", [(1, 1024, 64), (64, 128, 2),
+                                               (3, 7, 5), (1, 33, 1)])
+def test_sum_blocks_equals_the_sum_and_ignores_company(cuda, outer, nblk,
+                                                       inner):
+    """The block sums of K2 and K4: within the f32 chain of the exact sum,
+    two launches identical, and each column the same bits when summed
+    alone (the order depends on the block count only)."""
+    g = torch.Generator(device=cuda).manual_seed(nblk)
+    part = torch.rand((outer, nblk, inner), generator=g, device=cuda) * 100
+    got = cp_objective._sum_blocks(part)
+    chain = nblk // 32 + 1 + 5  # a lane's serial adds, then the shuffles
+    torch.testing.assert_close(got.double(), part.double().sum(1),
+                               rtol=chain * 2.0 ** -24, atol=0)
+    assert torch.equal(_bits(got), _bits(cp_objective._sum_blocks(part)))
+    for j in range(inner):
+        alone = cp_objective._sum_blocks(part[:, :, j:j + 1].contiguous())
+        assert torch.equal(_bits(got[:, j:j + 1]), _bits(alone))
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["K4", "K4w"])
+@pytest.mark.parametrize("k", [1, 2, 5, 16, 17, 64])
+def test_multi_partials_any_k_equals_plain(cuda, weighted, k):
+    """Every group size the kernel picks, groups of 16 along grid.y and a
+    ragged last group, at an n that is a multiple of no grid stride (the
+    tail loops run): counts (and integer masses) equal the plain version,
+    sums within 1e-4."""
+    n = (1 << 20) + 3
+    x = _data(1, n, k, cuda)[0]
+    w = _int_weights((n,), k, cuda)
+    piv = torch.tensor(K4_PIVOTS, device=cuda)
+    y = piv[torch.arange(k, device=cuda) % piv.numel()]
+    y[-1] = x[12345]
+    if weighted:
+        got = cp_objective.wcp_partials_multi(x, w, y)
+        want = ref.wcp_partials_multi_ref(x, w, y)
+    else:
+        got = cp_objective.cp_partials_multi(x, y)
+        want = ref.cp_partials_multi_ref(x, y)
+    for g, v in zip(got[2:], want[2:]):
+        assert torch.equal(g, v)
+    for g, v in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, v, rtol=1e-4, atol=0, equal_nan=True)
+
+
 def test_weighted_paths_launch_only_weighted_kernels(cuda):
     n = 1 << 17
     x = torch.randn(n, device=cuda)
@@ -312,7 +405,10 @@ def test_weighted_paths_launch_only_weighted_kernels(cuda):
         cp_objective.reset_launches()
         res = call()
         launched = {k: v for k, v in cp_objective.LAUNCHES.items() if v}
-        assert launched == {key: int(res.iters.max())}, launched
+        want_launches = {key: int(res.iters.max())}
+        if "partials" in key:  # each pass sums its block partials
+            want_launches["sum_blocks"] = int(res.iters.max())
+        assert launched == want_launches, launched
         if not small:
             qs = [0.5] if res.value.dim() == 0 else [0.1, 0.5, 0.9]
             want = [oracle(float(torch.tensor(q * W, dtype=torch.float32)))
