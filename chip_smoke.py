@@ -14,14 +14,20 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
-   ``sum_blocks.cu``, which sums K2's and K4's block partials, against
-   ``torch.sum`` at the shapes of the main path's launches (within its f32
-   chain of the f64 sum; two launches and each column alone bit for bit);
+   ``sum_blocks.cu``, which sums the block partials of K2, K4 and the
+   histogram legs with f32 rows, against the f64 sum at the shapes of the
+   main path's launches (within its f32 chain; two launches and each
+   column alone bit for bit);
 2. K1 (row histogram) against its plain version on the card, counts equal
    bit for bit, at the main path's (1, 2^27) and (64, 2^20) and at an n
    that is a multiple of no grid stride (``K1_SHAPES``), f32 and bf16,
    with ±inf, NaN, signed zeros and denormals in the data and full-range,
-   data-scale, narrow, duplicated-edge and denormal edge ladders;
+   data-scale, narrow, duplicated-edge and denormal edge ladders, the
+   first sweep's ladder over each row's finite range (every element but
+   the SPECIALS in the bracket), and at ``N_ODD`` (its row starting off a
+   16-byte boundary) two 8192-bin ladders; each in every design the call
+   can take (lane-private with ``full_bracket``, the shared histogram);
+   two launches identical;
 3. K2 (row partials) against its plain version at those shapes and the
    auto cp leg's n = 50,000 (``K2_SHAPES``): counts equal, NaN patterns
    equal, sums within ``SUM_RTOL``;
@@ -62,7 +68,13 @@ Phases (any failure raises and the script exits non-zero):
    and whole zero-mass slots included); with dense random weights the
    masses within ``f32_chain`` * 2^-24 of the f64 plain version (the
    longest chain of f32 additions in the kernel); each weighted kernel
-   launched twice on the same dense input gives identical bits; K4w also
+   launched twice on the same dense input gives identical bits; K1w also
+   at the first sweep's ladder and at 8192 bins (the grouped design), and
+   at n = 2^23 + 3 (1024 blocks) with dense weights each of 16 rows alone
+   gives the same bits as its entry in the batch; K3w at that n with dense
+   weights: each of 16 ladders alone (the first sweep's identical ones,
+   and the distinct narrow ones a descent step picks) equals its entry
+   among the 16, and a permutation of the 16 changes nothing; K4w also
    at (``N_ODD``, 17) with non-finite pivots, with the launch identities
    of phase 5 (against K2w) on integer and dense weights;
 9. the weighted paths at full size through their public entry points, the
@@ -113,16 +125,24 @@ Phases (any failure raises and the script exits non-zero):
    against a cold median on the same tick's data, each with a stats /
    loop / finalize breakdown.
 
+Every pass with f32 block partials (K2, K4, and the histogram legs with
+rows: K1w, K1s, K1ws, K3w, K3s, K3ws) sums them with one ``sum_blocks``
+launch, and the main paths' launch counts are held to that.
+
 The line before the last two is ``{"kernels": [...]}`` (all twelve kernel
 legs: K1-K4, their weighted legs K1w-K4w, and the sums legs K1s, K1ws,
-K3s, K3ws; and ``sum_blocks``, the block sums of K2 and K4); then the
+K3s, K3ws; and ``sum_blocks``, the block sums of every leg with f32
+partials; K1's and K1w's rows with first- and narrow-sweep times, their
+registers, shared memory and blocks per SM); then the
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
+import inspect
 import json
 import math
 import re
@@ -162,8 +182,9 @@ K2_SHAPES = ((1, N_BIG, 3), (ROWS, N_ROW, 4), (1, N_SMALL, 12),
 QS16 = np.arange(1, 17) / 17
 # K4 and K4w timed at these numbers of pivots (evenly spaced quantiles)
 KS_SWEEP = (1, 4, 16, 64)
-# --compare: runs per tree, in turns (other, this, this, other)
-COMPARE_ROUNDS = 2
+# --compare: runs per tree, in turns (other, this, this, other, other,
+# this)
+COMPARE_ROUNDS = 3
 # f32 lane operations per (element, pivot) that K4 cannot do without: a
 # subtract, two compares (each also gives its complement), two sum adds
 # and two count adds; K4w a multiply and two more sum adds
@@ -188,6 +209,33 @@ def cuda_ms(fn, reps: int, rounds: int = 5, warmup: int = 2) -> float:
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20, rounds: int = 7) -> float:
+    """Median over ``rounds`` of the device time per call of ``reps``
+    calls captured in one CUDA graph: the time on the card without the
+    host's launch overhead (for kernels of a few microseconds, which
+    back-to-back launches from the host would pace)."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    for _ in range(3):
+        graph.replay()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
@@ -228,32 +276,88 @@ def bracket_kinds():
             (-1e-40, 1e-40)]        # denormal bracket
 
 
+def first_sweep_edges(ref, x: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Per row of ``x`` (B, n), the first sweep's ladder: [min, max] of
+    the row's values of magnitude below 1e30 (so every element but the
+    SPECIALS lies in the bracket)."""
+    xf = x.float()
+    ok = xf.abs() < 1e30
+    lo = torch.where(ok, xf, float("inf")).amin(dim=1)
+    hi = torch.where(ok, xf, float("-inf")).amax(dim=1)
+    return ref.bin_edges(lo, hi, nbins).contiguous()
+
+
+def full_kw(cpo, full: bool = True) -> dict:
+    """The row histogram wrappers' ``full_bracket`` keyword (the first
+    sweep: every element in the bracket), for a tree whose wrappers take
+    it; a tree without it has one design per call."""
+    params = inspect.signature(cpo.cp_histogram_batched).parameters
+    return {"full_bracket": full} if "full_bracket" in params else {}
+
+
+def k1_designs(cpo, nedges: int, nrows: int, n: int):
+    """The ``full_bracket`` values that reach distinct designs of K1
+    (``nrows`` 0), K1w/K1s (1) or K1ws (2) at this call."""
+    if not full_kw(cpo):
+        return [False]
+    lay = {f: cpo.hist_rows_layout(nedges, nrows, n, f) for f in (False,
+                                                                  True)}
+    return [False] if lay[True] == lay[False] else [False, True]
+
+
+def k1_ladders(ref, x: torch.Tensor, n: int):
+    """(label, edges) of the K1 and K1w checks on ``x`` (B, n): the five
+    bracket kinds (one per row for a batch, each in turn for B = 1), the
+    first sweep's ladder, and at ``N_ODD`` two 8192-bin ladders (data
+    scale and first sweep) past the lane-private tables' width."""
+    kinds = bracket_kinds()
+    rows = x.shape[0]
+    ladders = ([[kinds[i % len(kinds)] for i in range(rows)]]
+               if rows > 1 else [[kind] for kind in kinds])
+    out = [(str(ladder[:5]), edge_ladders(ref, ladder, 128))
+           for ladder in ladders]
+    out.append(("first sweep", first_sweep_edges(ref, x, 128)))
+    if n == N_ODD:
+        out.append(("data scale, 8192 bins",
+                    edge_ladders(ref, [kinds[1]] * rows, 8192)))
+        out.append(("first sweep, 8192 bins", first_sweep_edges(ref, x, 8192)))
+    return out
+
+
 def check_k1(cpo, ref) -> dict:
     """K1 counts against the plain version; returns the largest
     |kernel - plain| count difference (it raises unless that is 0)."""
-    kinds = bracket_kinds()
     worst = 0
     for dtype in (torch.float32, torch.bfloat16):
         for rows, n, seed in K1_SHAPES:
             x = special_data(rows, n, seed).to(dtype)
-            # one ladder per row for the batch, each ladder in turn for B = 1
-            ladders = ([[kinds[i % len(kinds)] for i in range(rows)]]
-                       if rows > 1 else [[kind] for kind in kinds])
-            for ladder in ladders:
-                e = edge_ladders(ref, ladder, 128)
-                got, _ = cpo.cp_histogram_batched(x, e)
+            if n == N_ODD:  # rows off a 16-byte boundary (K1's head path)
+                buf = torch.empty(rows * n + 3, dtype=dtype, device=DEVICE)
+                x = buf[3:].view(rows, n).copy_(x)
+            for label, e in k1_ladders(ref, x, n):
                 want, _ = ref.cp_histogram_batched_ref(x, e, want_sums=False)
-                torch.cuda.synchronize()
-                worst = max(worst, int((got - want).abs().max()))
-                if not torch.equal(got, want):
-                    raise AssertionError(f"K1 counts differ from the plain "
-                                         f"version: ({rows}, {n}) {dtype} "
-                                         f"{ladder[:5]}")
-                assert torch.all(got.sum(dim=1) == n)
+                for full in k1_designs(cpo, e.shape[1], 0, n):
+                    kw = full_kw(cpo, full)
+                    got, _ = cpo.cp_histogram_batched(x, e, **kw)
+                    torch.cuda.synchronize()
+                    worst = max(worst, int((got - want).abs().max()))
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"K1 counts differ from the plain version: "
+                            f"({rows}, {n}) {dtype} {label} full={full}")
+                    if not torch.equal(
+                            got, cpo.cp_histogram_batched(x, e, **kw)[0]):
+                        raise AssertionError(
+                            f"K1: two launches differ: ({rows}, {n}) "
+                            f"{dtype} {label} full={full}")
+                    assert torch.all(got.sum(dim=1) == n)
             del x
     log(f"K1 hist_batched == plain version bit for bit at (rows, n) "
-        f"{[s[:2] for s in K1_SHAPES]}, 5 edge ladders, f32 and bf16, with "
-        f"inf/NaN/denormals")
+        f"{[s[:2] for s in K1_SHAPES]}, 5 edge ladders and the first "
+        f"sweep's (128 bins), 8192-bin ladders at n={N_ODD}, f32 and bf16, "
+        f"with inf/NaN/denormals, in each design the call can take (lane-"
+        f"private with full_bracket, shared histogram); two launches "
+        f"identical")
     return {"max_abs_err": float(worst)}
 
 
@@ -419,15 +523,17 @@ def check_k4(cpo, ref) -> dict:
 
 
 def sum_blocks_shapes(cpo):
-    """(outer, nblk, inner) of the block partials that K2 and K4 hand to
+    """(outer, nblk, inner) of the block partials handed to
     ``sum_blocks``: K4 and K4w at 16 pivots of 2^27 and K4 of N_SMALL (the
     multi-k main path), K2 at one row of 2^27 and of N_SMALL and K2w at one
-    row of 2^27 (the scalar and weighted main paths), and K2 on the rows
-    batch (64, 2^20)."""
+    row of 2^27 (the scalar and weighted main paths), K2 on the rows batch
+    (64, 2^20); K1w at one row of 2^27 and on the rows batch, and K3w at 16
+    ladders of 2^27 (128 bins, 130 slots)."""
     big, small = cpo.fg_blocks(N_BIG), cpo.fg_blocks(N_SMALL)
+    rows = cpo.fg_blocks(N_ROW)
     return ((1, big, 16 * 2), (1, big, 16 * 4), (1, small, 16 * 2),
-            (1, big, 2), (1, small, 2), (ROWS, cpo.fg_blocks(N_ROW), 2),
-            (1, big, 4))
+            (1, big, 2), (1, small, 2), (ROWS, rows, 2), (1, big, 4),
+            (1, big, 130), (ROWS, rows, 130), (1, big, 16 * 130))
 
 
 def check_sum_blocks(cpo) -> dict:
@@ -596,8 +702,12 @@ def f32_chain(cpo, n: int) -> int:
     weighted kernel at length n: its thread's serial sum (one element per
     thread and grid stride), a slot group of at most 32 lanes, a warp
     shuffle (5), the warps of a block (8), and the fixed-order sum over the
-    fg_blocks(n) block partials.  For non-negative terms a sum through
-    such a chain is within chain * 2^-24 of the exact sum, relative."""
+    fg_blocks(n) block partials.  K1w's lane-private design stays within
+    it: a thread's serial sum (256 threads a block), 32 columns, 8 warps
+    (its end slots: 5 shuffle levels, 8 warps), then ``sum_blocks``, whose
+    chain over nblk partials is ceil(nblk / 32) + 5 <= nblk + 5.  For
+    non-negative terms a sum through such a chain is within chain * 2^-24
+    of the exact sum, relative."""
     nblk = cpo.fg_blocks(n)
     per_thread = -(-n // (nblk * 256))
     return per_thread + 32 + 5 + 8 + nblk
@@ -693,38 +803,113 @@ class WeightedCheck:
                 "max_rel_err_objective_sums": self.sum_rel}
 
 
+N_IDENT = (1 << 23) + 3  # fg_blocks(N_IDENT) == FG_MAX_BLOCKS (1024)
+
+
 def check_k1w(cpo, ref) -> dict:
-    kinds = bracket_kinds()
     chk = WeightedCheck("K1w")
     for rows, n, seed in K1_SHAPES:
         x32, wi32, wd32 = weighted_inputs(rows, n, seed + 40)
-        ladders = ([[kinds[i % len(kinds)] for i in range(rows)]]
-                   if rows > 1 else [[kind] for kind in kinds])
+        ladders = k1_ladders(ref, x32, n)
         for xdt, wdt in WDTYPES:
             x, wi = x32.to(xdt), wi32.to(wdt)
-            for ladder in ladders:
-                e = edge_ladders(ref, ladder, 128)
-                got = cpo.wcp_histogram_batched(x, wi, e)[:2]
+            for label, e in ladders:
                 want = ref.wcp_histogram_batched_ref(x, wi, e,
                                                      want_sums=False)[:2]
-                chk.exact(got, want, f"({rows}, {n}) {xdt} {wdt} {ladder[:3]}")
+                for full in k1_designs(cpo, e.shape[1], 1, n):
+                    got = cpo.wcp_histogram_batched(
+                        x, wi, e, **full_kw(cpo, full))[:2]
+                    chk.exact(got, want, f"({rows}, {n}) {xdt} {wdt} "
+                                         f"{label} full={full}")
         x, wd = x32, wd32  # dense f32 weights: f64 sums, two launches
         rtol = f32_chain(cpo, n) * 2.0 ** -24
-        for ladder in ladders:
-            e = edge_ladders(ref, ladder, 128)
-            got = cpo.wcp_histogram_batched(x, wd, e)[1]
+        for label, e in ladders:
             exact = ref.wcp_histogram_batched_ref(x, wd.double(), e,
                                                   want_sums=False)[1]
-            chk.dense(got, exact, rtol, f"({rows}, {n}) {ladder[:3]}")
-            chk.repeat(lambda: cpo.wcp_histogram_batched(x, wd, e)[:2],
-                       f"({rows}, {n})")
+            for full in k1_designs(cpo, e.shape[1], 1, n):
+                kw = full_kw(cpo, full)
+                got = cpo.wcp_histogram_batched(x, wd, e, **kw)[1]
+                chk.dense(got, exact, rtol, f"({rows}, {n}) {label} "
+                                            f"full={full}")
+                chk.repeat(lambda: cpo.wcp_histogram_batched(
+                    x, wd, e, **kw)[:2], f"({rows}, {n}) {label}")
         del x32, wi32, wd32, x, wi, wd
+    rows_alone_equal_batch(cpo, ref)
     log(f"K1w hist_batched weighted == plain version: counts and masses bit "
         f"for bit with integer weights (zero-mass slots included), dense "
         f"weights within {chk.dense_bound:.3g} of f64 (worst "
         f"{chk.dense_rel:.3g}), two launches identical, (rows, n) "
-        f"{[s[:2] for s in K1_SHAPES]}, x and w each f32 and bf16")
+        f"{[s[:2] for s in K1_SHAPES]} with the first sweep's ladder and "
+        f"8192 bins at n={N_ODD}, x and w each f32 and bf16, in each design "
+        f"the call can take (lane-private with full_bracket at n >= "
+        f"{cpo.LANE_ROWS_MIN_N}, grouped); at n={N_IDENT} with dense "
+        f"weights each of 16 rows alone == its entry in the batch, bit for "
+        f"bit, in both designs")
     return chk.result()
+
+
+def rows_alone_equal_batch(cpo, ref, check: bool = True) -> bool:
+    """K1w at n = N_IDENT (1024 block partials) with dense weights, 16
+    rows on their first sweep's ladders: whether each row alone gives the
+    same counts and masses, bit for bit, as its entry in the batch (raises
+    if not, with ``check``)."""
+    x = torch.randn((16, N_IDENT), generator=gen(301), device=DEVICE)
+    wd = dense_weights((16, N_IDENT), 302)
+    e = first_sweep_edges(ref, x, 128)
+    same = True
+    for full in k1_designs(cpo, e.shape[1], 1, N_IDENT):
+        kw = full_kw(cpo, full)
+        cnt, mass, _ = cpo.wcp_histogram_batched(x, wd, e, **kw)
+        for r in range(16):
+            c1, m1, _ = cpo.wcp_histogram_batched(x[r:r + 1], wd[r:r + 1],
+                                                  e[r:r + 1], **kw)
+            same &= torch.equal(cnt[r:r + 1], c1) and same_bits(
+                mass[r:r + 1], m1)
+    if check and not same:
+        raise AssertionError("K1w: a row alone differs from its entry in a "
+                             "batch of 16 (1024 blocks, dense weights)")
+    return same
+
+
+def ladders_alone_equal_among_16(cpo, ref, sel, check: bool = True) -> dict:
+    """K3w at n = N_IDENT (1024 block partials) with dense weights: whether
+    each of 16 ladders alone gives the same counts and masses, bit for bit,
+    as its entry among the 16, and a permutation of the 16 the same as the
+    16 permuted: on the first sweep's 16 identical ladders and on the
+    distinct narrow ladders a descent step picks for 16 quantiles (raises
+    if not, with ``check``), and, reported only, on the five bracket kinds
+    cycled over 16 (overlapping ladders: an element inside several is
+    grouped per ladder in a round that depends on the ladders before it,
+    so their masses may follow their company)."""
+    x = torch.randn(N_IDENT, generator=gen(303), device=DEVICE)
+    wd = dense_weights(N_IDENT, 304)
+    e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
+    e1 = e1.contiguous()
+    ks = sel.ranks_from_quantiles(QS16, N_IDENT).to(DEVICE)
+    cnt1 = cpo.cp_histogram_multi(x, e1)[0]
+    cum = torch.cumsum(cnt1[:, :-1], dim=-1, dtype=torch.int32)
+    yl, yr, *_ = sel.binned_descent_step(cum, e1, e1[:, 0], e1[:, -1], ks)
+    kinds = bracket_kinds()
+    cases = {"first sweep": e1,
+             "narrow": ref.bin_edges(yl, yr, 128).contiguous(),
+             "5 kinds cycled": edge_ladders(ref, [kinds[j % 5]
+                                                  for j in range(16)], 128)}
+    perm = torch.randperm(16, generator=gen(305), device=DEVICE)
+    out = {}
+    for label, e in cases.items():
+        cnt, mass, _ = cpo.wcp_histogram_multi(x, wd, e)
+        same = True
+        for j in range(16):
+            c1, m1, _ = cpo.wcp_histogram(x, wd, e[j])
+            same &= torch.equal(cnt[j], c1) and same_bits(mass[j], m1)
+        cp, mp, _ = cpo.wcp_histogram_multi(x, wd, e[perm].contiguous())
+        same &= torch.equal(cnt[perm], cp) and same_bits(mass[perm], mp)
+        out[label] = same
+        if check and label != "5 kinds cycled" and not same:
+            raise AssertionError(f"K3w: a ladder alone or permuted differs "
+                                 f"from its entry among 16 ({label}; 1024 "
+                                 f"blocks, dense weights)")
+    return out
 
 
 def check_k2w(cpo, ref) -> dict:
@@ -758,7 +943,7 @@ def check_k2w(cpo, ref) -> dict:
     return chk.result()
 
 
-def check_k3w(cpo, ref) -> dict:
+def check_k3w(cpo, ref, sel) -> dict:
     kinds = bracket_kinds()
     chk = WeightedCheck("K3w")
     cases = ((N_BIG, 61, [("16 identical", [kinds[1]] * 16, 128),
@@ -794,13 +979,15 @@ def check_k3w(cpo, ref) -> dict:
             chk.repeat(lambda: cpo.wcp_histogram_multi(x32, wd32, e)[:2],
                        f"n={n} {label}")
         del x32, wi32, wd32, x, wi
+    ident = ladders_alone_equal_among_16(cpo, ref, sel)
     log(f"K3w hist_multi weighted == plain version: counts and masses bit for "
         f"bit with integer weights at n=2^27 K=16 (identical and cycled "
         f"ladders), n={N_ODD} K=64, K=3 at 8192 bins and K=1 "
         f"(wcp_histogram), dense masses within {chk.dense_bound:.3g} of f64 "
         f"(worst {chk.dense_rel:.3g}), two launches identical, x and w each "
-        f"f32 and bf16")
-    return chk.result()
+        f"f32 and bf16; at n={N_IDENT} with dense weights a ladder alone and "
+        f"the 16 permuted == its entry among 16: {json.dumps(ident)}")
+    return {**chk.result(), "alone_equals_among_16": ident}
 
 
 def check_k4w(cpo, ref) -> dict:
@@ -869,6 +1056,20 @@ def mass_oracle(xs, cum, wk):
     return torch.gather(xs, -1, idx).reshape(-1)
 
 
+def has_block_sums(key: str) -> bool:
+    """Whether the wrapper counted under ``LAUNCHES[key]`` sums f32 block
+    partials with ``sum_blocks`` (one launch per pass): the partials
+    kernels, and the histogram legs with rows (weighted or sums legs)."""
+    return ("partials" in key or key.startswith("w")
+            or key.endswith("_sums"))
+
+
+def block_sum_passes(launches: dict) -> int:
+    """The passes in ``launches`` that sum their block partials."""
+    return sum(v for k, v in launches.items()
+               if k != "sum_blocks" and has_block_sums(k))
+
+
 def drive_only(sel, cpo, label, fn, check, expect_kernel):
     """Run one call with the launch counts read from zero; ``check(res)``
     raises unless the values are right.  Only ``expect_kernel`` may launch,
@@ -884,13 +1085,14 @@ def drive_only(sel, cpo, label, fn, check, expect_kernel):
     if bool((res.status == sel.NOT_CONVERGED).any()):
         raise AssertionError(f"{label}: NOT_CONVERGED")
     moved = {k for k, v in launches.items() if v}
-    # a partials pass sums its block partials with sum_blocks
-    block_sums = launches[expect_kernel] if "partials" in expect_kernel else 0
+    # a pass with f32 block partials sums them with sum_blocks
+    block_sums = (launches[expect_kernel] if has_block_sums(expect_kernel)
+                  else 0)
     if (moved - {"sum_blocks"} != {expect_kernel}
             or launches["sum_blocks"] != block_sums):
         raise AssertionError(f"{label}: launched {launches}, expected only "
                              f"{expect_kernel} (and sum_blocks as often on "
-                             f"a partials leg)")
+                             f"a leg with f32 partials)")
     if launches[expect_kernel] != int(res.iters.max()):
         raise AssertionError(f"{label}: {launches[expect_kernel]} launches "
                              f"for {int(res.iters.max())} sweeps or passes")
@@ -1036,13 +1238,15 @@ def weighted_timings(sel, cpo, ref, obj) -> dict:
     io = N_BIG * 8  # x and w, f32
     # K1w at the first sweep's full-data bracket (every element inside)
     e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].contiguous()
-    cnt, _, _ = cpo.wcp_histogram_batched(x2, w2, e1)
+    fk = full_kw(cpo)
+    cnt, _, _ = cpo.wcp_histogram_batched(x2, w2, e1, **fk)
     inside = int(N_BIG - cnt[0, 0] - cnt[0, -1])
     steps = math.ceil(math.log2(e1.shape[1]))
     e3 = ref.bin_edges(torch.tensor(-1e-3, device=DEVICE),
                        torch.tensor(2e-3, device=DEVICE), 128)[None, :]
     out["k1w"] = dict(
-        ms=cuda_ms(lambda: cpo.wcp_histogram_batched(x2, w2, e1), reps=20),
+        ms=cuda_ms(lambda: cpo.wcp_histogram_batched(x2, w2, e1, **fk),
+                   reps=20),
         plain_ms=cuda_ms(lambda: ref.wcp_histogram_batched_ref(
             x2, w2, e1, want_sums=False), reps=2, rounds=3),
         # compares and a mass add per element, a search and an add inside
@@ -1243,9 +1447,11 @@ def check_sums_rows(cpo, ref) -> tuple:
             e = edge_ladders(ref, ladder, 128)
             for xdt in (torch.float32, torch.bfloat16):
                 x = xi.to(xdt)
-                c1s.exact(cpo.cp_histogram_batched(x, e, want_sums=True),
-                          ref.cp_histogram_batched_ref(x, e, want_sums=True),
-                          f"({rows}, {n}) {xdt} {ladder[:3]}")
+                for full in k1_designs(cpo, e.shape[1], 1, n):
+                    c1s.exact(cpo.cp_histogram_batched(
+                        x, e, want_sums=True, **full_kw(cpo, full)),
+                        ref.cp_histogram_batched_ref(x, e, want_sums=True),
+                        f"({rows}, {n}) {xdt} {ladder[:3]} full={full}")
             for xdt, wdt in WDTYPES:
                 x, w = xi.to(xdt), wi.to(wdt)
                 c1ws.exact(cpo.wcp_histogram_batched(x, w, e, want_sums=True),
@@ -1259,14 +1465,18 @@ def check_sums_rows(cpo, ref) -> tuple:
         plain = ref.wcp_histogram_batched_ref
         for ladder in ladders:
             e = edge_ladders(ref, ladder, 128)
-            got = cpo.cp_histogram_batched(x, e, want_sums=True)
-            c1s.near(got[1], *f64_sums(plain, x, None, e), got[0], chain,
-                     f"({rows}, {n}) {ladder[:3]}")
+            for full in k1_designs(cpo, e.shape[1], 1, n):
+                got = cpo.cp_histogram_batched(x, e, want_sums=True,
+                                               **full_kw(cpo, full))
+                c1s.near(got[1], *f64_sums(plain, x, None, e), got[0],
+                         chain, f"({rows}, {n}) {ladder[:3]} full={full}")
             got = cpo.wcp_histogram_batched(x, wd, e, want_sums=True)
             c1ws.near(got[2], *f64_sums(plain, x, wd, e), got[0], chain,
                       f"({rows}, {n}) {ladder[:3]}")
-            c1s.repeat(lambda: cpo.cp_histogram_batched(x, e, want_sums=True),
-                       f"({rows}, {n})")
+            for full in k1_designs(cpo, e.shape[1], 1, n):
+                c1s.repeat(lambda: cpo.cp_histogram_batched(
+                    x, e, want_sums=True, **full_kw(cpo, full)),
+                    f"({rows}, {n}) full={full}")
             c1ws.repeat(lambda: cpo.wcp_histogram_batched(x, wd, e,
                                                           want_sums=True),
                         f"({rows}, {n})")
@@ -1513,27 +1723,30 @@ def sums_timings(sel, cpo, ref, obj, tick) -> dict:
     e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].contiguous()
     e3 = ref.bin_edges(torch.tensor(-1e-3, device=DEVICE),
                        torch.tensor(2e-3, device=DEVICE), 128)[None, :]
+    fk = full_kw(cpo)
     cnt, _ = cpo.cp_histogram_batched(x2, e1)
     inside = int(N_BIG - cnt[0, 0] - cnt[0, -1])
     outs = 2 * cnt.numel() * 4
+    # the first sweep's ladder e1 holds every element (full_bracket)
     for key, fn, plain, twin, nbytes, ops in (
-            ("k1s", lambda e: cpo.cp_histogram_batched(x2, e, want_sums=True),
+            ("k1s", lambda e, **kw: cpo.cp_histogram_batched(
+                x2, e, want_sums=True, **kw),
              lambda: ref.cp_histogram_batched_ref(x2, e1, want_sums=True),
-             lambda: cpo.cp_histogram_batched(x2, e1),
+             lambda: cpo.cp_histogram_batched(x2, e1, **fk),
              N_BIG * 4 + e1.numel() * 4 + outs,
              # compares and an end-slot add per element, a search and an
              # add inside
              3 * N_BIG + inside * (steps + 1)),
-            ("k1ws", lambda e: cpo.wcp_histogram_batched(x2, w2, e,
-                                                         want_sums=True),
+            ("k1ws", lambda e, **kw: cpo.wcp_histogram_batched(
+                x2, w2, e, want_sums=True, **kw),
              lambda: ref.wcp_histogram_batched_ref(x2, w2, e1,
                                                    want_sums=True),
-             lambda: cpo.wcp_histogram_batched(x2, w2, e1),
+             lambda: cpo.wcp_histogram_batched(x2, w2, e1, **fk),
              N_BIG * 8 + e1.numel() * 4 + outs + cnt.numel() * 4,
              # + the product and a second add per element
              5 * N_BIG + inside * (steps + 2))):
         out[key] = dict(
-            ms=cuda_ms(lambda: fn(e1), reps=20),
+            ms=cuda_ms(lambda: fn(e1, **fk), reps=20),
             narrow_ms=cuda_ms(lambda: fn(e3), reps=20),
             twin_ms=cuda_ms(twin, reps=20),
             plain_ms=cuda_ms(plain, reps=2, rounds=3),
@@ -1665,7 +1878,8 @@ def timings(sel, cpo, ref, obj) -> dict:
     x = torch.randn((1, N_BIG), generator=gen(8), device=DEVICE)
     e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].contiguous()
     # K1 at the first sweep's full-data bracket (every element in bracket)
-    k1 = cuda_ms(lambda: cpo.cp_histogram_batched(x, e1), reps=20)
+    fk = full_kw(cpo)
+    k1 = cuda_ms(lambda: cpo.cp_histogram_batched(x, e1, **fk), reps=20)
     k1_plain = cuda_ms(lambda: ref.cp_histogram_batched_ref(
         x, e1, want_sums=False), reps=2, rounds=3)
     cnt, _ = cpo.cp_histogram_batched(x, e1)
@@ -1693,8 +1907,8 @@ def timings(sel, cpo, ref, obj) -> dict:
     xr = torch.randn((ROWS, N_ROW), generator=gen(9), device=DEVICE)
     er = ref.bin_edges(xr.amin(1), xr.amax(1), 128).contiguous()
     yr = torch.zeros(ROWS, device=DEVICE)
-    out["k1_rows_ms"] = cuda_ms(lambda: cpo.cp_histogram_batched(xr, er),
-                                reps=20)
+    out["k1_rows_ms"] = cuda_ms(lambda: cpo.cp_histogram_batched(
+        xr, er, **fk), reps=20)
     out["k2_rows_ms"] = cuda_ms(lambda: cpo.cp_partials_batched(xr, yr),
                                 reps=20)
     out["rows_bound_ms"] = xr.numel() * 4 / HBM_BYTES_PER_S * 1e3
@@ -1884,14 +2098,31 @@ def fg_multi_instance(mangled: str):
     return f"{_TYPES[t]}/{w}/{g}"
 
 
-def ptxas_report(text: str) -> dict:
-    """Registers and spill bytes per fg_multi kernel instance, from the
-    ``-Xptxas -v`` output of its build."""
+def hist_batched_instance(mangled: str):
+    """The mangled name of a ``hist_batched.cu`` kernel -> "name T/W/leg"
+    (lane_rows_kernel legs 1 K1w, 2 K1s; whist_batched_kernel legs 0 K1w,
+    1 K1s, 2 K1ws; W is T and leg "-" where the kernel has none), or None
+    for another function."""
+    m = re.search(r"\d+(lane_count_kernel|lane_rows_kernel|"
+                  r"whist_batched_kernel|hist_batched_kernel)"
+                  r"I(f|13__nv_bfloat16)"
+                  r"(f|13__nv_bfloat16|S\w*?_)?(?:Li(\d)E)?E", mangled)
+    if not m:
+        return None
+    name, t, w, leg = m.groups()
+    w = t if w is None or w.startswith("S") else w
+    return f"{name} {_TYPES[t]}/{_TYPES[w]}/{leg or '-'}"
+
+
+def ptxas_report(text: str, instance=fg_multi_instance) -> dict:
+    """Registers and spill bytes per kernel instance (``instance`` maps a
+    mangled name to its label, or None to skip it), from the ``-Xptxas
+    -v`` output of a build."""
     rows, entry = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            entry = fg_multi_instance(m.group(1))
+            entry = instance(m.group(1))
             if entry:
                 rows[entry] = {}
         elif entry and "spill stores" in line:
@@ -2005,27 +2236,191 @@ def fg_multi_build(_build) -> dict:
     return out
 
 
+def hist_batched_build(_build, cpo) -> dict:
+    """K1's build report: registers and spills of each ``hist_batched.cu``
+    instance (ptxas; only when this process built the library), and per
+    lane-private leg at 128 bins its shared bytes a block and the blocks
+    an SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; a
+    tree without the lane-private design reports none)."""
+    out = {"ptxas": ptxas_report(_build.build_log.get("hist_batched", ""),
+                                 hist_batched_instance)}
+    lib = _build.load("hist_batched")
+    if hasattr(cpo, "lane_hist_smem") and hasattr(lib,
+                                                  "lane_hist_blocks_per_sm"):
+        fn = lib.lane_hist_blocks_per_sm
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for leg, name, nrows in ((0, "k1", 0), (1, "k1w", 1), (2, "k1s", 1)):
+            blocks = ctypes.c_int(0)
+            rc = fn(leg, 129, cpo.LANE_WARPS, ctypes.byref(blocks))
+            if rc != 0:
+                raise RuntimeError(f"occupancy query of {name} failed: CUDA "
+                                   f"error {rc}")
+            out[name] = {"smem_bytes": cpo.lane_hist_smem(129, nrows),
+                         "warps": cpo.LANE_WARPS,
+                         "blocks_per_sm": blocks.value,
+                         "grid_blocks_per_sm": cpo.blocks_per_sm(
+                             cpo.lane_hist_smem(129, nrows))}
+    return out
+
+
+def lane_build(report: dict, leg: str, instance: str) -> dict:
+    """A lane-private leg's registers, spills, shared bytes and blocks
+    per SM from ``hist_batched_build``'s report."""
+    return {**report["ptxas"].get(instance, {}), **report.get(leg, {})}
+
+
+def hist_rows_times(cpo, ref, weighted: bool) -> dict:
+    """K1 (K1w with ``weighted``, dense weights) through its wrapper on
+    randn at (1, 2^27) and (64, 2^20), x f32 and bf16 (and w f32 and bf16
+    on K1w), at the first sweep's ladder (each row's [min, max], every
+    element inside; ``full_bracket``, as the engine calls it) and at a
+    narrow one (-1e-3, 2e-3], 128 bins: ms by "shape/x/w/sweep"."""
+    out = {}
+    pairs = WDTYPES if weighted else ((torch.float32, None),
+                                      (torch.bfloat16, None))
+    for shape, (rows, n), seed in (("1x2^27", (1, N_BIG), 8),
+                                   ("64x2^20", (ROWS, N_ROW), 9)):
+        x = torch.randn((rows, n), generator=gen(seed), device=DEVICE)
+        w = dense_weights((rows, n), seed + 300) if weighted else None
+        ladders = {"first": ref.bin_edges(x.amin(1), x.amax(1), 128),
+                   "narrow": ref.bin_edges(
+                       torch.full((rows,), -1e-3, device=DEVICE),
+                       torch.full((rows,), 2e-3, device=DEVICE), 128)}
+        for xdt, wdt in pairs:
+            xx = x.to(xdt)
+            ww = None if w is None else w.to(wdt)
+            for sweep, e in ladders.items():
+                e = e.contiguous()
+                key = (f"{shape}/{_KEYS[xdt]}/"
+                       f"{'-' if wdt is None else _KEYS[wdt]}/{sweep}")
+                fk = full_kw(cpo, sweep == "first")
+                if weighted:
+                    out[key] = cuda_ms(lambda: cpo.wcp_histogram_batched(
+                        xx, ww, e, **fk), reps=20)
+                else:
+                    out[key] = cuda_ms(lambda: cpo.cp_histogram_batched(
+                        xx, e, **fk), reps=20)
+            del xx, ww
+        del x, w
+    return out
+
+
+_KEYS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def sum_blocks_timing(cpo) -> dict:
-    """``sum_blocks`` at the largest shape of the main path (K4w's 16
-    pivots on 2^27), against ``torch.sum`` over the block axis, which is
-    both its plain version and the library call for the same sums."""
-    part = torch.rand(sum_blocks_shapes(cpo)[1], generator=gen(210),
-                      device=DEVICE)
-    outer, nblk, inner = part.shape
-    return dict(ms=cuda_ms(lambda: cpo._sum_blocks(part), reps=50),
-                plain_ms=cuda_ms(lambda: torch.sum(part, dim=1), reps=50),
-                bound=bound(part.numel() * 4 + outer * inner * 4,
-                            outer * inner * (nblk - 1)),
-                shape=list(part.shape))
+    """``sum_blocks`` at K4w's 16 pivots on 2^27 and at K1w's rows batch
+    (64, 2^20), against ``torch.sum`` over the block axis, which is both
+    its plain version and the library call for the same sums; device time
+    from CUDA-graph replays (``graph_ms``)."""
+    out = {}
+    for label, shape in (("", sum_blocks_shapes(cpo)[1]),
+                         ("rows_", sum_blocks_shapes(cpo)[8])):
+        part = torch.rand(shape, generator=gen(210), device=DEVICE)
+        outer, nblk, inner = part.shape
+        out.update({
+            f"{label}ms": graph_ms(lambda: cpo._sum_blocks(part)),
+            f"{label}plain_ms": graph_ms(lambda: torch.sum(part, dim=1)),
+            f"{label}bound": bound(part.numel() * 4 + outer * inner * 4,
+                                   outer * inner * (nblk - 1)),
+            f"{label}shape": list(part.shape)})
+    return out
 
 
-def compare_times(sel, cpo, obj, _build) -> dict:
+def rows_path_times(sel, obj) -> dict:
+    """The answers of the row histogram's main path end to end, each with
+    its sweeps and its stats / loop / finalize breakdown: ``median`` of
+    2^27 f32, ``select_rows`` on (64, 2^20) with per-row k,
+    ``weighted_median`` of 2^27 with 0/1 weights at density 1/16 and with
+    dense weights, ``weighted_select_rows`` on (64, 2^20) with integer
+    weights."""
+    x = torch.randn(N_BIG, generator=gen(8), device=DEVICE)
+    xr = torch.randn((ROWS, N_ROW), generator=gen(9), device=DEVICE)
+    ks = torch.randint(1, N_ROW + 1, (ROWS,), generator=gen(10),
+                       device=DEVICE)
+    w01 = (torch.rand(N_BIG, generator=gen(93), device=DEVICE)
+           < 1 / 16).float()
+    wd = dense_weights(N_BIG, 92)
+    wr = torch.randint(0, 8, (ROWS, N_ROW), generator=gen(95),
+                       device=DEVICE).float()
+    wks = (torch.rand(ROWS, generator=gen(96), device=DEVICE)
+           * wr.sum(dim=1)).floor()
+    cap, cap_rows = sel._default_cap(N_BIG), sel._default_cap_rows(N_ROW)
+    k_med = (N_BIG + 1) // 2
+    cases = (
+        ("median", lambda: sel.median(x),
+         lambda: obj.RowsEvaluator(x[None], k_med), cap),
+        ("select_rows", lambda: sel.select_rows(xr, ks),
+         lambda: obj.RowsEvaluator(xr, ks), cap_rows),
+        ("weighted_median_01", lambda: sel.weighted_median(x, w01),
+         lambda: obj.RowsEvaluator(x[None], 0.5 * w01.sum(),
+                                   weights=w01[None]), cap),
+        ("weighted_median_dense", lambda: sel.weighted_median(x, wd),
+         lambda: obj.RowsEvaluator(x[None], 0.5 * wd.sum(),
+                                   weights=wd[None]), cap),
+        ("weighted_select_rows", lambda: sel.weighted_select_rows(xr, wr, wks),
+         lambda: obj.RowsEvaluator(xr, wks, weights=wr), cap_rows))
+    out = {}
+    for label, call, make, cp in cases:
+        out[f"{label}_ms"] = cuda_ms(call, reps=1, rounds=5)
+        out[f"{label}_stats_ms"] = cuda_ms(lambda: make().init_stats(),
+                                           reps=1, rounds=5)
+        ev = make()
+        out[f"{label}_loop_ms"] = cuda_ms(lambda: sel.binned_loop_batched(
+            ev, nbins=128, cap=cp), reps=1, rounds=5)
+        st, xmin, xmax = sel.binned_loop_batched(ev, nbins=128, cap=cp)
+        w = {"w": ev.w.to(ev.k.dtype)} if ev.weighted else {}
+        out[f"{label}_finalize_ms"] = cuda_ms(lambda: sel._finalize_rows(
+            ev.x, ev.k, st, cp, xmin, xmax, **w), reps=1, rounds=5)
+        out[f"{label}_sweeps"] = int(st.iters.max())
+        del ev, st
+    return out
+
+
+def k1w_outputs(cpo, ref) -> dict:
+    """K1w's counts and masses on 2 rows of ``N_IDENT`` with the SPECIALS
+    (rows long enough for the lane-private design), at two bracket kinds
+    and at the first sweep's ladders (``full_bracket``), with integer and
+    with dense weights, for ``compare_outputs``."""
+    x = special_data(2, N_IDENT, 41)
+    weights = {"int": int_weights((2, N_IDENT), 42),
+               "dense": dense_weights((2, N_IDENT), 43)}
+    out = {}
+    for label, e in (("kinds", edge_ladders(ref, bracket_kinds()[:2], 128)),
+                     ("first sweep", first_sweep_edges(ref, x, 128))):
+        for wl, w in weights.items():
+            cnt, mass, _ = cpo.wcp_histogram_batched(
+                x, w, e, **full_kw(cpo, label == "first sweep"))
+            out[f"k1w {label} {wl}"] = [cnt.tolist(), mass.tolist()]
+    return out
+
+
+def compare_times(sel, cpo, obj, ref, _build) -> dict:
     """What ``--compare`` reads from each tree: the two cp solves
     (``cp_solves``); K2 and K2w at one pivot on 2^27; K4 and K4w at K in
     ``KS_SWEEP`` with x and w each f32 and bf16; whether each of 16 pivots
     alone gets the same bits as among the 16, at 1024 blocks with dense
-    weights; and fg_multi's build report."""
-    out = {"cp": cp_solves(sel, obj)}
+    weights; fg_multi's build report; ``sum_blocks``'s device time at
+    four shapes of its launches; K1 and K1w at the first and narrow
+    sweeps (``hist_rows_times``), the row histogram's main path end to end
+    (``rows_path_times``), hist_batched's build report, whether a K1w row
+    alone and a K3w ladder alone get the same bits as in company; and the
+    outputs of K4/K4w and K1w for ``compare_outputs``."""
+    parts = {str(list(sh)): torch.rand(sh, generator=gen(211), device=DEVICE)
+             for sh in (sum_blocks_shapes(cpo)[i] for i in (1, 5, 8, 9))}
+    out = {"sum_blocks_device_ms": {k: graph_ms(lambda: cpo._sum_blocks(v))
+                                    for k, v in parts.items()},
+           "k1_ms": hist_rows_times(cpo, ref, False),
+           "k1w_ms": hist_rows_times(cpo, ref, True),
+           "rows_path": rows_path_times(sel, obj),
+           "hist_build": hist_batched_build(_build, cpo),
+           "k1w_row_alone_equals_batch": rows_alone_equal_batch(
+               cpo, ref, check=False),
+           "k3w_ladder_alone_equals_among_16": ladders_alone_equal_among_16(
+               cpo, ref, sel, check=False)}
+    out["cp"] = cp_solves(sel, obj)
     x = torch.randn(N_BIG, generator=gen(32), device=DEVICE)
     wd = dense_weights(N_BIG, 92)
     y0 = torch.zeros(1, device=DEVICE)
@@ -2075,6 +2470,7 @@ def compare_times(sel, cpo, obj, _build) -> dict:
                              ("k4w dense", cpo.wcp_partials_multi(x, wd, y))):
                 out["outputs"][f"{leg} K={k} {pset}"] = [
                     t.tolist() for t in got]
+    out["outputs"].update(k1w_outputs(cpo, ref))
     try:
         out["build"] = fg_multi_build(_build)
     except Exception as e:  # a tree whose build this parser does not read
@@ -2084,30 +2480,41 @@ def compare_times(sel, cpo, obj, _build) -> dict:
 
 def compare_outputs(a: dict, b: dict) -> dict:
     """Two trees' ``compare_times`` outputs: whether the counts (and the
-    masses with integer weights) are equal, how many sums carry the same
-    bits, and the largest relative difference of the others."""
-    exact, same, total, worst = True, 0, 0, 0.0
+    masses with integer weights) are equal, and per leg (k4, k4w, k1w) how
+    many f32 sums or dense masses carry the same bits and the largest
+    relative difference of the others."""
+    exact, legs = True, {}
     for case, outs in a.items():
-        nsums = 2 if case.startswith("k4 ") else 4
+        # K4 (two sums, two counts), K4w (four sums, two counts), K1w
+        # (counts, then masses): which outputs are integers
+        if case.startswith("k1w "):
+            ints = (0,) if "dense" in case else (0, 1)
+        else:
+            nsums = 2 if case.startswith("k4 ") else 4
+            ints = tuple(i for i in range(len(outs))
+                         if i >= nsums or ("int" in case and i < 4))
+        tally = legs.setdefault(case.split()[0], [0, 0, 0.0])
         for i, (u, v) in enumerate(zip(outs, b[case])):
             u, v = np.array(u), np.array(v)
-            if i >= nsums or ("int" in case and i < 4):
+            if i in ints:
                 exact &= bool(np.array_equal(u, v, equal_nan=True))
                 continue
             u32, v32 = u.astype(np.float32), v.astype(np.float32)
             bits = (u32.view(np.int32) == v32.view(np.int32)) | (
                 np.isnan(u32) & np.isnan(v32))
-            same += int(bits.sum())
-            total += bits.size
+            tally[0] += int(bits.sum())
+            tally[1] += bits.size
             fin = np.isfinite(u) & np.isfinite(v) & ~bits
             if fin.any():
-                worst = max(worst, float(np.max(
+                tally[2] = max(tally[2], float(np.max(
                     np.abs(u[fin] - v[fin]) / np.abs(v[fin]))))
             if (~fin & ~bits).any():  # a non-finite sum that differs
-                worst = float("inf")
+                tally[2] = float("inf")
     return {"counts_and_integer_masses_equal": exact,
-            "sums_same_bits": f"{same}/{total}",
-            "sums_max_rel_diff": worst}
+            "sums_same_bits": {leg: f"{t[0]}/{t[1]}" for leg, t in
+                               legs.items() if t[1]},
+            "sums_max_rel_diff": {leg: t[2] for leg, t in legs.items()
+                                  if t[1]}}
 
 
 def _merge(runs):
@@ -2199,7 +2606,8 @@ def main() -> None:
         return
     if args.times_of:
         _build.build_all()
-        print(json.dumps(compare_times(sel, cpo, obj, _build)), flush=True)
+        print(json.dumps(compare_times(sel, cpo, obj, ref, _build)),
+              flush=True)
         return
     log(f"device: {name} | {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
@@ -2217,7 +2625,7 @@ def main() -> None:
     k3_check = check_k3(cpo, ref)
     k4_check = check_k4(cpo, ref)
     w_checks = [check_k1w(cpo, ref), check_k2w(cpo, ref),
-                check_k3w(cpo, ref), check_k4w(cpo, ref)]
+                check_k3w(cpo, ref, sel), check_k4w(cpo, ref)]
     log(f"kernel checks took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2237,14 +2645,15 @@ def main() -> None:
                        ("wcp_partials_multi", weighted)):
         if count[key] == 0:
             raise AssertionError(f"{key} never launched on its main path")
-    # every partials pass (K2, K4 and their weighted legs) sums its block
-    # partials with one sum_blocks launch
+    # every pass with f32 block partials (K2, K4, their weighted legs, and
+    # the histogram legs with rows) sums them with one sum_blocks launch
     paths = (launches, multi, weighted)
     sb_launches = sum(d["sum_blocks"] for d in paths)
-    passes = sum(v for d in paths for k, v in d.items() if "partials" in k)
+    passes = sum(block_sum_passes(d) for d in paths)
     if sb_launches == 0 or sb_launches != passes:
         raise AssertionError(f"sum_blocks launched {sb_launches} times on "
-                             f"the main paths for {passes} partials passes")
+                             f"the main paths for {passes} passes with "
+                             f"block partials")
 
     t0 = time.perf_counter()
     tm = timings(sel, cpo, ref, obj)
@@ -2252,7 +2661,12 @@ def main() -> None:
     tw = weighted_timings(sel, cpo, ref, obj)
     tcp = cp_solves(sel, obj)
     tsb = sum_blocks_timing(cpo)
+    tk1 = {"k1": hist_rows_times(cpo, ref, False),
+           "k1w": hist_rows_times(cpo, ref, True)}
+    hbb = hist_batched_build(_build, cpo)
     log(f"timings took {time.perf_counter() - t0:.1f} s")
+    log("K1/K1w sweeps (ms, " + name + ", " + smi + "): " + json.dumps(tk1))
+    log("K1/K1w build: " + json.dumps(hbb))
     log("timings (ms, " + name + ", " + smi + "): " + json.dumps(tm))
     log("multi-k timings (ms, " + name + ", " + smi + "): "
         + json.dumps(tmm))
@@ -2277,6 +2691,10 @@ def main() -> None:
                 "wcp_histogram_batched_sums", "wcp_histogram_multi_sums"):
         if polished[key] == 0:
             raise AssertionError(f"{key} never launched on its main path")
+    if polished["sum_blocks"] != block_sum_passes(polished):
+        raise AssertionError(f"sum_blocks launched {polished['sum_blocks']} "
+                             f"times on the polished paths for "
+                             f"{block_sum_passes(polished)} sums passes")
     t0 = time.perf_counter()
     ts = sums_timings(sel, cpo, ref, obj, tick)
     del tick
@@ -2294,8 +2712,19 @@ def main() -> None:
          "bound_ms": tm["k1"]["bound"][0], "bound_by": tm["k1"]["bound"][1],
          "library_ms": None,
          "shape": "(1, 2^27) f32, 128 bins, first-sweep edges",
+         "design": "first sweep (full_bracket): lane-private 16-bit "
+                   "counts, x read in 16-byte packs, slots guessed from the "
+                   "ladder's ends and decided by the realized edges, 8 "
+                   "elements binned while 8 load; other sweeps: the earlier "
+                   "shared histogram",
+         "first_sweep_design": "lane",
+         "narrow_sweep_design": "shared",
+         "first_sweep_ms": tm["k1"]["ms"],
+         "narrow_sweep_ms": tm["k1"]["narrow_ms"],
          "narrow_bracket_ms": tm["k1"]["narrow_ms"],
          "rows_64x2^20_ms": tm["k1_rows_ms"],
+         "sweeps_ms": tk1["k1"],
+         **lane_build(hbb, "k1", "lane_count_kernel f32/f32/-"),
          "nearest_library": "torch.histc, 128 uniform bins",
          "nearest_library_ms": tm["k1"]["histc_ms"]},
         {"name": "fg_batched (K2)", "route": "cuda",
@@ -2381,7 +2810,20 @@ def main() -> None:
                               "loaded while 8 are summed; two blocks of 8 "
                               "warps per SM")
         if key == "wcp_histogram_batched":
-            row["narrow_bracket_ms"] = tw["k1w"]["narrow_ms"]
+            row.update(design="first sweep (full_bracket) of rows of at "
+                              "least LANE_ROWS_MIN_N: lane-private f32 "
+                              "masses and 16-bit counts, summed per slot "
+                              "over columns, then warps in order; 16 "
+                              "elements and weights binned while 16 load; "
+                              "other sweeps and shorter rows: the earlier "
+                              "grouped rows",
+                       first_sweep_design="lane",
+                       narrow_sweep_design="grouped",
+                       first_sweep_ms=tw["k1w"]["ms"],
+                       narrow_sweep_ms=tw["k1w"]["narrow_ms"],
+                       narrow_bracket_ms=tw["k1w"]["narrow_ms"],
+                       sweeps_ms=tk1["k1w"],
+                       **lane_build(hbb, "k1w", "lane_rows_kernel f32/f32/1"))
         if key == "wcp_histogram_multi":
             row.update(narrow_sweep_ms=tw["k3w_narrow"]["ms"],
                        narrow_sweep_plain_ms=tw["k3w_narrow"]["plain_ms"],
@@ -2430,17 +2872,23 @@ def main() -> None:
                        narrow_sweep_distinct_ladders=n["distinct_ladders"])
         kernels.append(row)
     kernels.append(
-        {"name": "sum_blocks (block sums of K2, K2w, K4, K4w)",
+        {"name": "sum_blocks (block sums of K2, K4 and the histogram legs "
+                 "with rows, weighted legs included)",
          "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sum_blocks.cu",
          "replaces": "src/repro/kernels/cp_objective.py:268",
-         "replaces_also": "src/repro/kernels/cp_objective.py:301",
+         "replaces_also": ["src/repro/kernels/cp_objective.py:301",
+                           "src/repro/kernels/cp_objective.py:351",
+                           "src/repro/kernels/cp_objective.py:382"],
          "launches": sb_launches, **sb_check,
          "ms": tsb["ms"], "plain_ms": tsb["plain_ms"],
          "bound_ms": tsb["bound"][0], "bound_by": tsb["bound"][1],
          "library_ms": tsb["plain_ms"],
          "shape": f"{tuple(tsb['shape'])} f32 block partials (K4w, 16 "
                   f"pivots of 2^27)",
+         "rows_shape": f"{tuple(tsb['rows_shape'])} (K1w, the rows batch)",
+         "rows_ms": tsb["rows_ms"], "rows_plain_ms": tsb["rows_plain_ms"],
+         "rows_bound_ms": tsb["rows_bound"][0],
          "nearest_library": "torch.sum over the block axis, which is also "
                             "the plain version (so library_ms is plain_ms)"})
     print(json.dumps({"kernels": kernels}), flush=True)

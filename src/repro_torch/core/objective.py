@@ -163,7 +163,8 @@ class Evaluator(Protocol):
                                   torch.Tensor]: ...
 
     def histogram(
-        self, edges: torch.Tensor, need_msum: bool = False
+        self, edges: torch.Tensor, need_msum: bool = False,
+        full_bracket: bool = False
     ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]: ...
 
 
@@ -209,12 +210,15 @@ class RowsEvaluator:
         return fg_from_partials(ops.fused_partials_batched(self.x, y),
                                 self.n, self.k)
 
-    def histogram(self, edges, need_msum=False):
+    def histogram(self, edges, need_msum=False, full_bracket=False):
+        # full_bracket (every element lies in its row's bracket) picks the
+        # row kernel's design on the card
         if self.weighted:
             return ops.fused_weighted_histogram_batched(
-                self.x, self.w, edges, want_sums=need_msum)
-        cnt, bsum = ops.fused_histogram_batched(self.x, edges,
-                                                want_sums=need_msum)
+                self.x, self.w, edges, want_sums=need_msum,
+                full_bracket=full_bracket)
+        cnt, bsum = ops.fused_histogram_batched(
+            self.x, edges, want_sums=need_msum, full_bracket=full_bracket)
         return cnt, cnt, bsum  # counting measure: the counts ARE the mass
 
     def init_stats(self):
@@ -265,7 +269,8 @@ class SharedEvaluator:
         return fg_from_partials(ops.fused_partials_multi(self.x, y),
                                 self.n, self.k)
 
-    def histogram(self, edges, need_msum=False):
+    def histogram(self, edges, need_msum=False, full_bracket=False):
+        # full_bracket is the row kernel's design hint; K3 has one design
         if self.weighted:
             return ops.fused_weighted_histogram_multi(
                 self.x, self.w, edges, want_sums=need_msum)

@@ -622,7 +622,9 @@ def binned_loop_batched(
             edges = polish_edges(s.yL, s.yR, s.tp, nbins)
         else:
             edges = bin_edges(s.yL, s.yR, nbins)
-        cnt, mass, msum = ev.histogram(edges, need_msum=polish)
+        # sweep 1's bracket is [min, max]: every element lies inside it
+        cnt, mass, msum = ev.histogram(edges, need_msum=polish,
+                                       full_bracket=s.it == 0)
         # prefix counts at the realized edges: cum[..., j] = count(x <= e_j)
         cumn = torch.cumsum(cnt[..., :-1], dim=-1, dtype=torch.int32)
         # the prefix measures decide the narrowing (the counts themselves on

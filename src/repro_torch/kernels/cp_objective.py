@@ -28,11 +28,21 @@ f32.  Every f32 sum — the masses that decide the weighted narrowing and
 the per-slot sums that place the polish cut included — comes from
 per-block partials reduced over blocks here in a fixed order, with a block
 count that depends on ``n`` alone, so the same input gives the same bits
-from run to run.  K2's and K4's block sums go through
-a fifth kernel, ``csrc/sum_blocks.cu`` (:func:`_sum_blocks`, its own
-``LAUNCHES`` entry ``sum_blocks``), whose order depends on the block count
-alone, so a pivot's partials are the same bits at any K and through either
-kernel.
+from run to run.  Every leg's block sums (K2, K4 and the histogram legs
+with f32 rows: K1w, K1s, K1ws, K3w, K3s, K3ws) go through a fifth kernel,
+``csrc/sum_blocks.cu`` (:func:`_sum_blocks`, its own ``LAUNCHES`` entry
+``sum_blocks``, one launch per pass), whose order depends on the block
+count alone: a pivot's partials are the same bits at any K and through
+either kernel, and a row's or ladder's masses do not depend on the other
+rows or ladders of its launch.
+
+K1 has two designs and its legs with rows two, chosen by
+:func:`hist_rows_layout` from the call's shape and whether the ladder's
+bracket holds every element (``full_bracket``, the engine's first sweep):
+lane-private tables (K1 on such sweeps, K1w and K1s on such sweeps of rows
+of at least ``LANE_ROWS_MIN_N`` elements, at widths whose tables fit a
+block), a shared histogram (K1 otherwise) and grouped rows (K1w/K1s
+otherwise, and K1ws).
 
 Each wrapper checks what the kernel takes and raises on anything else,
 allocates the outputs, launches on the current stream, raises on a
@@ -61,18 +71,33 @@ LAUNCHES = {"cp_histogram_batched": 0, "cp_partials_batched": 0,
             "wcp_histogram_multi_sums": 0, "wcp_histogram_sums": 0,
             "sum_blocks": 0}
 
-# K1: blocks resident per SM that the grid aims to fill (integer atomics make
-# the counts independent of the block count, so it may follow the card)
+# K1: its grid aims to fill the card with the blocks an SM holds (integer
+# atomics make the counts independent of the block count, so it may follow
+# the card); at most HIST_BLOCKS_PER_SM, fewer where the shared memory of
+# a block allows fewer (SM_SMEM bytes an SM, SMEM_RESERVED more a block)
 HIST_BLOCKS_PER_SM = 8
 HIST_THREADS = 256
-# shared memory a block may use without opting in: (nbins+1) edges + the
-# (nbins+2)-slot histogram must fit
+SM_SMEM = 228 * 1024
+SMEM_RESERVED = 1024
+# shared memory a block may use without opting in
 HIST_MAX_SMEM = 48 * 1024
+# lane-private K1/K1w/K1s: warps a block (their rows' f32 chain counts on
+# one element per thread and grid stride of HIST_THREADS threads), and the
+# most elements of a row per thread and grid stride (its 16-bit counts
+# hold 65535; K1's 16-byte packs round a thread's share up by less than a
+# pack, 8 elements, and one head or tail element may come on top)
+LANE_WARPS = HIST_THREADS // 32
+LANE_MAX_PER_THREAD = 65535 - 16
 # K2: one block per FG_CHUNK elements of a row, at most FG_MAX_BLOCKS; a
 # function of n alone, so the per-block sums and their reduce repeat bit
 # for bit from run to run
 FG_CHUNK = 8192
 FG_MAX_BLOCKS = 1024
+# K1w/K1s take the lane-private design from this row length on, where the
+# fg_blocks(n) blocks stop growing in number and each bins FG_CHUNK
+# elements or more; below it the grouped design's lighter blocks read
+# faster
+LANE_ROWS_MIN_N = FG_CHUNK * FG_MAX_BLOCKS
 MAX_ROWS = 65535  # grid.y limit
 # K3: a block holds a power of two of at most 16 ladders (two register
 # counters each per thread), only as many as fit in HIST_MAX_SMEM; a single
@@ -117,14 +142,15 @@ def reset_launches() -> None:
 
 
 def _kernel_fn(lib_name: str, dtype: torch.dtype, wdtype=None,
-               sums: bool = False):
+               sums: bool = False, lane: bool = False):
     """The C entry of ``csrc/<lib_name>.cu`` for ``x`` of ``dtype`` — on
     the weighted leg (``wdtype``, the weights' dtype) the ``w``-prefixed
-    entry for that pair of types, and for a histogram's sums leg
-    (``sums``) the ``s``-prefixed one."""
+    entry for that pair of types, for a histogram's sums leg (``sums``)
+    the ``s``-prefixed one, and for K1's lane-private design (``lane``)
+    the same entry prefixed ``lane_``."""
     prefix = ("w" if wdtype is not None else "") + ("s" if sums else "") \
         + lib_name
-    name = f"{prefix}_{_KERNEL_DTYPES[dtype]}"
+    name = ("lane_" if lane else "") + f"{prefix}_{_KERNEL_DTYPES[dtype]}"
     if wdtype is not None:
         name += f"_{_KERNEL_DTYPES[wdtype]}"
     fn = _fns.get(name)
@@ -199,7 +225,9 @@ def _sum_blocks(part: torch.Tensor) -> torch.Tensor:
     """Sum f32 per-block partials ``(outer, nblk, inner)`` over the block
     axis with ``csrc/sum_blocks.cu``, in an order set by ``nblk`` alone (so
     a pivot's sums do not depend on the other pivots of its launch, nor on
-    whether K2 or K4 measured it); returns ``(outer, inner)``."""
+    whether K2 or K4 measured it, and a histogram row's or ladder's masses
+    and sums not on the other rows or ladders); returns
+    ``(outer, inner)``."""
     outer, nblk, inner = part.shape
     # every output is written (a block sum of zero blocks is +0)
     out = torch.empty((outer, inner), dtype=torch.float32, device=part.device)
@@ -214,10 +242,53 @@ def _sum_blocks(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def hist_blocks_per_row(rows: int, n: int, device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_row = -(-sms * HIST_BLOCKS_PER_SM // rows)
-    return max(1, min(per_row, -(-n // HIST_THREADS)))
+def lane_hist_smem(nedges: int, nrows: int,
+                   warps: int = LANE_WARPS) -> int:
+    """Shared bytes of a lane-private block (``LaneLayout`` in
+    ``csrc/hist_batched.cu``) with ``nrows`` (0 or 1) f32 rows: the edges
+    padded to a power of two, per warp ``nbins`` rows of 32 f32 columns
+    (``nrows``) and ``ceil(nbins / 2)`` rows of 32 columns of packed 16-bit
+    counts, per warp an f32 reduction row of ``nbins + 2`` slots
+    (``nrows``), and the block's ``nbins + 2`` int counts."""
+    nb, nslots = nedges - 1, nedges + 1
+    pad = 1 << max(0, (nedges - 1).bit_length())
+    return 4 * (pad + warps * 32 * (nb * nrows + nedges // 2)
+                + warps * nslots * nrows + nslots)
+
+
+def hist_rows_layout(nedges: int, nrows: int, n: int,
+                     full_bracket: bool) -> str:
+    """K1's design for rows of ``n`` elements, a ladder of ``nedges``
+    edges and ``nrows`` f32 rows per slot (0: K1; 1: K1w, K1s; 2: K1ws):
+    ``"lane"`` when the ladder's bracket holds every element
+    (``full_bracket``: the first sweep, where every element is binned),
+    the lane-private tables (one row at most) fit a block and, with a row,
+    ``n >= LANE_ROWS_MIN_N``; else ``"shared"`` (K1) or ``"grouped"``.  On
+    a narrow sweep nearly every element lies outside the bracket and costs
+    two compares in any design; there the earlier designs, whose small
+    blocks fill an SM, read faster.  A rule on the call, never a fallback
+    on error."""
+    if (full_bracket and nedges >= 2 and nrows <= 1
+            and (nrows == 0 or n >= LANE_ROWS_MIN_N)
+            and lane_hist_smem(nedges, nrows) <= HIST_OPTIN_SMEM):
+        return "lane"
+    return "shared" if nrows == 0 else "grouped"
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of ``HIST_THREADS`` threads with ``smem`` shared bytes each
+    that an SM holds, at most ``HIST_BLOCKS_PER_SM``."""
+    return max(1, min(HIST_BLOCKS_PER_SM, SM_SMEM // (smem + SMEM_RESERVED)))
+
+
+def hist_blocks_per_row(rows: int, n: int, sms: int, per_sm: int) -> int:
+    """K1's blocks per row: enough for ``per_sm`` blocks on each of
+    ``sms`` SMs over all rows, no more than a row has threads' worth of
+    elements, and so many that a row gives no thread more than
+    ``LANE_MAX_PER_THREAD`` elements per grid stride."""
+    per_row = -(-sms * per_sm // rows)
+    per_row = max(1, min(per_row, -(-n // HIST_THREADS)))
+    return max(per_row, -(-n // (HIST_THREADS * LANE_MAX_PER_THREAD)))
 
 
 def fg_blocks(n: int) -> int:
@@ -225,15 +296,17 @@ def fg_blocks(n: int) -> int:
 
 
 def cp_histogram_batched(x: torch.Tensor, edges: torch.Tensor, *,
-                         want_sums: bool = False):
+                         want_sums: bool = False, full_bracket: bool = False):
     """K1: per-row slot counts of ``x`` (B, n) f32/bf16 against realized
     f32 ``edges`` (B, nbins+1).  Returns ``(cnt, bsum)`` with ``cnt`` int32
     (B, nbins + 2), slot layout as ``ref.searchsorted_slots``; ``bsum`` is
     ``None``, or with ``want_sums`` (the K1s leg) the f32 sums of ``x`` per
-    slot."""
+    slot.  ``full_bracket`` says that each row's bracket holds all its
+    elements (it picks the design, :func:`hist_rows_layout`; the result is
+    the same)."""
     if want_sums:
         cnt, part = _hist_rows(x, None, edges, True,
-                               "cp_histogram_batched_sums")
+                               "cp_histogram_batched_sums", full_bracket)
         return cnt, part[:, 0]
     _check_data(x)
     rows, n = x.shape
@@ -242,18 +315,21 @@ def cp_histogram_batched(x: torch.Tensor, edges: torch.Tensor, *,
         raise ValueError(f"edges must be (B, nbins + 1), got "
                          f"{tuple(edges.shape)}")
     _check_side(edges, x, (rows, nedges), "edges")
-    smem = (2 * nedges + 1) * 4
-    if smem > HIST_MAX_SMEM:
+    lane = hist_rows_layout(nedges, 0, n, full_bracket) == "lane"
+    smem = lane_hist_smem(nedges, 0) if lane else (2 * nedges + 1) * 4
+    if smem > HIST_OPTIN_SMEM:
         raise ValueError(f"{nedges - 1} bins need {smem} bytes of shared "
-                         f"memory; the kernel holds at most {HIST_MAX_SMEM}")
+                         f"memory; a block holds at most {HIST_OPTIN_SMEM}")
     cnt = torch.zeros((rows, nedges + 1), dtype=torch.int32, device=x.device)
     if rows == 0:
         return cnt, None
-    fn = _kernel_fn("hist_batched", x.dtype)
+    fn = _kernel_fn("hist_batched", x.dtype, lane=lane)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), edges.data_ptr(), cnt.data_ptr(), rows, n,
-                nedges, hist_blocks_per_row(rows, n, x.device), stream)
+                nedges, hist_blocks_per_row(rows, n, sms,
+                                            blocks_per_sm(smem)), stream)
     _raise_on(rc, "hist_batched")
     LAUNCHES["cp_histogram_batched"] += 1
     return cnt, None
@@ -464,11 +540,13 @@ def whist_layout(k: int, nedges: int, nrows: int = 1) -> tuple[int, int]:
 
 
 def _hist_rows(x: torch.Tensor, w, edges: torch.Tensor, want_sums: bool,
-               key: str):
+               key: str, full_bracket: bool = False):
     """Launch the row-wise histogram leg with f32 slot rows on ``x`` (B, n)
     and ``edges`` (B, nbins+1): K1w (``w``, no sums), K1s (no ``w``, sums)
-    or K1ws (``w`` and sums); then reduce the per-block rows in a fixed
-    order; counts one launch under ``LAUNCHES[key]``.  Returns the int32
+    or K1ws (``w`` and sums), in the design :func:`hist_rows_layout` picks
+    (``full_bracket``: every element lies in its row's bracket);
+    then reduce the per-block rows with :func:`_sum_blocks`; counts one
+    launch under ``LAUNCHES[key]``.  Returns the int32
     counts (B, nbins + 2) and the f32 rows (B, R, nbins + 2): the mass or
     the sum (R = 1), or the mass and the sum (R = 2)."""
     _check_data(x)
@@ -481,14 +559,16 @@ def _hist_rows(x: torch.Tensor, w, edges: torch.Tensor, want_sums: bool,
                          f"{tuple(edges.shape)}")
     _check_side(edges, x, (rows, nedges), "edges")
     nrows = 2 if w is not None and want_sums else 1
-    _, warps = whist_layout(1, nedges, nrows)
+    lane = hist_rows_layout(nedges, nrows, n, full_bracket) == "lane"
+    warps = LANE_WARPS if lane else whist_layout(1, nedges, nrows)[1]
     nblk = fg_blocks(n)
     cnt = torch.zeros((rows, nedges + 1), dtype=torch.int32, device=x.device)
     part = torch.empty((rows, nblk, nrows, nedges + 1), dtype=torch.float32,
                        device=x.device)
     if rows > 0:
         fn = _kernel_fn("hist_batched", x.dtype,
-                        None if w is None else w.dtype, sums=want_sums)
+                        None if w is None else w.dtype, sums=want_sums,
+                        lane=lane)
         data = (x.data_ptr(),) if w is None else (x.data_ptr(), w.data_ptr())
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -496,19 +576,22 @@ def _hist_rows(x: torch.Tensor, w, edges: torch.Tensor, want_sums: bool,
                     rows, n, nedges, nblk, warps, stream)
         _raise_on(rc, "hist_batched")
         LAUNCHES[key] += 1
-    return cnt, torch.sum(part, dim=1)
+    sums = _sum_blocks(part.view(rows, nblk, nrows * (nedges + 1)))
+    return cnt, sums.view(rows, nrows, nedges + 1)
 
 
 def wcp_histogram_batched(x: torch.Tensor, w: torch.Tensor,
-                          edges: torch.Tensor, *, want_sums: bool = False):
+                          edges: torch.Tensor, *, want_sums: bool = False,
+                          full_bracket: bool = False):
     """K1w: per-row slot counts and masses of ``x``/``w`` (B, n), each
     f32/bf16, against realized f32 ``edges`` (B, nbins+1).  Returns
     ``(cnt, wcnt, wsum)``: int32 counts and f32 masses, each
     (B, nbins + 2), slot layout as ``ref.searchsorted_slots``; ``wsum`` is
     ``None``, or with ``want_sums`` (the K1ws leg) the f32 sums of ``w*x``
-    per slot."""
+    per slot.  ``full_bracket`` as in :func:`cp_histogram_batched` (the
+    design, and so the last bits of dense masses, may follow it)."""
     key = "wcp_histogram_batched" + ("_sums" if want_sums else "")
-    cnt, part = _hist_rows(x, w, edges, want_sums, key)
+    cnt, part = _hist_rows(x, w, edges, want_sums, key, full_bracket)
     return cnt, part[:, 0], (part[:, 1] if want_sums else None)
 
 
@@ -524,8 +607,8 @@ def _whist_multi(x: torch.Tensor, w, edges: torch.Tensor, key: str,
                  want_sums: bool = False):
     """Launch the shared-x histogram leg with f32 slot rows on ``x`` (n,)
     and ``edges`` (K, nbins+1): K3w (``w``, no sums), K3s (no ``w``, sums)
-    or K3ws (``w`` and sums); then reduce the per-block rows in a fixed
-    order; counts one launch under ``LAUNCHES[key]``.  Returns the int32
+    or K3ws (``w`` and sums); then reduce the per-block rows with
+    :func:`_sum_blocks`; counts one launch under ``LAUNCHES[key]``.  Returns the int32
     counts (K, nbins + 2) and the f32 rows (K, R, nbins + 2), as
     :func:`_hist_rows`."""
     _check_data(x, shared=True)
@@ -555,7 +638,8 @@ def _whist_multi(x: torch.Tensor, w, edges: torch.Tensor, key: str,
                     x.shape[0], k, nedges, group, nblk, warps, stream)
         _raise_on(rc, "hist_multi")
         LAUNCHES[key] += 1
-    return cnt, torch.sum(part, dim=0)
+    sums = _sum_blocks(part.view(1, nblk, k * nrows * (nedges + 1)))
+    return cnt, sums.view(k, nrows, nedges + 1)
 
 
 def wcp_histogram_multi(x: torch.Tensor, w: torch.Tensor,

@@ -47,14 +47,16 @@ def fused_partials_batched(x: torch.Tensor, y: torch.Tensor):
 
 
 def fused_histogram_batched(x: torch.Tensor, edges: torch.Tensor, *,
-                            want_sums: bool = False):
+                            want_sums: bool = False,
+                            full_bracket: bool = False):
     """Row-wise binned pass, counting leg: ``x`` (B, n), per-row realized
     edges ``(B, nbins+1)`` -> ``(cnt, bsum)``, ``cnt`` int32
     ``(B, nbins + 2)``, ``bsum`` the per-slot sums of ``x`` with
-    ``want_sums`` (else ``None``)."""
+    ``want_sums`` (else ``None``).  ``full_bracket`` (every element lies
+    in its row's bracket) picks the kernel's design on the card."""
     if uses_kernel(x):
-        return cp_objective.cp_histogram_batched(x, edges,
-                                                 want_sums=want_sums)
+        return cp_objective.cp_histogram_batched(
+            x, edges, want_sums=want_sums, full_bracket=full_bracket)
     return ref.cp_histogram_batched_ref(x, edges, want_sums=want_sums)
 
 
@@ -103,14 +105,16 @@ def fused_weighted_partials_batched(x: torch.Tensor, w: torch.Tensor,
 
 def fused_weighted_histogram_batched(x: torch.Tensor, w: torch.Tensor,
                                      edges: torch.Tensor, *,
-                                     want_sums: bool = False):
+                                     want_sums: bool = False,
+                                     full_bracket: bool = False):
     """Row-wise weighted binned pass: ``x``/``w`` (B, n), per-row realized
     edges ``(B, nbins+1)`` -> ``(cnt, wcnt, wsum)``, each
     ``(B, nbins + 2)``; ``wsum`` (the per-slot sums of ``w*x``) only with
-    ``want_sums``, else ``None``."""
+    ``want_sums``, else ``None``.  ``full_bracket`` as in
+    :func:`fused_histogram_batched`."""
     if uses_kernel_weighted(x, w):
-        return cp_objective.wcp_histogram_batched(x, w, edges,
-                                                  want_sums=want_sums)
+        return cp_objective.wcp_histogram_batched(
+            x, w, edges, want_sums=want_sums, full_bracket=full_bracket)
     return ref.wcp_histogram_batched_ref(x, w, edges, want_sums=want_sums)
 
 

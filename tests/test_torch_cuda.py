@@ -405,9 +405,9 @@ def test_weighted_paths_launch_only_weighted_kernels(cuda):
         cp_objective.reset_launches()
         res = call()
         launched = {k: v for k, v in cp_objective.LAUNCHES.items() if v}
-        want_launches = {key: int(res.iters.max())}
-        if "partials" in key:  # each pass sums its block partials
-            want_launches["sum_blocks"] = int(res.iters.max())
+        # each weighted pass sums its f32 block partials with sum_blocks
+        want_launches = {key: int(res.iters.max()),
+                         "sum_blocks": int(res.iters.max())}
         assert launched == want_launches, launched
         if not small:
             qs = [0.5] if res.value.dim() == 0 else [0.1, 0.5, 0.9]
@@ -594,7 +594,9 @@ def test_polish_and_warm_paths_launch_their_kernels(cuda):
         cp_objective.reset_launches()
         res = call("binned_polish")
         launched = {k: v for k, v in cp_objective.LAUNCHES.items() if v}
-        assert launched == {key: int(res.iters.max())}, launched
+        # each sums pass sums its f32 block partials with sum_blocks
+        assert launched == {key: int(res.iters.max()),
+                            "sum_blocks": int(res.iters.max())}, launched
         assert torch.equal(res.value, call("sort").value)
     cold = selection.median(x)
     cp_objective.reset_launches()
@@ -602,3 +604,145 @@ def test_polish_and_warm_paths_launch_their_kernels(cuda):
     assert int(warm.iters) == 1 and int(warm.status) == selection.EXACT_HIT
     assert cp_objective.LAUNCHES["cp_histogram_batched"] == 1
     assert float(warm.value) == float(cold.value)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K1w: the lane-private design (128 bins) and the wide-ladder designs
+# (8192 bins); block sums that ignore the rest of the launch
+# ---------------------------------------------------------------------------
+
+K1_SHAPES = [(1, 1 << 27), (64, 1 << 20), (1, (1 << 20) + 3),
+             (5, 100_003)]
+
+
+def _first_sweep_edges(x, nbins):
+    """Each row's [min, max] over its values below 1e30 in magnitude: the
+    first sweep's ladder, every element but the planted specials inside."""
+    xf = x.float()
+    ok = xf.abs() < 1e30
+    lo = torch.where(ok, xf, float("inf")).amin(dim=1)
+    hi = torch.where(ok, xf, float("-inf")).amax(dim=1)
+    return ref.bin_edges(lo, hi, nbins).contiguous()
+
+
+def _wide_edges(rows, device):
+    return ref.bin_edges(torch.full((rows,), -2.0, device=device),
+                         torch.full((rows,), 2.0, device=device), 8192)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", K1_SHAPES)
+def test_row_histogram_first_sweep_equals_plain(cuda, dtype, rows, n):
+    """K1's lane-private design (``full_bracket``) on the first sweep
+    (every element but the specials in the bracket) and on ladders cycling
+    through full-range, data-scale, one-ulp, denormal and narrow brackets,
+    with rows that start off a 16-byte boundary among them: counts bit for
+    bit, as the shared design's, two launches identical."""
+    x = _data(rows, n, 5, cuda).to(dtype)
+    if rows == 5:  # rows that start off a 16-byte boundary: head elements
+        buf = torch.empty(rows * n + 3, dtype=dtype, device=cuda)
+        x = buf[3:].view(rows, n).copy_(x)
+    for edges in (_first_sweep_edges(x, 128), _ladders(rows, cuda)):
+        assert cp_objective.hist_rows_layout(edges.shape[1], 0, n,
+                                             True) == "lane"
+        got, _ = cp_objective.cp_histogram_batched(x, edges,
+                                                   full_bracket=True)
+        want, _ = ref.cp_histogram_batched_ref(x, edges, want_sums=False)
+        assert torch.equal(got, want)
+        assert torch.equal(got, cp_objective.cp_histogram_batched(
+            x, edges, full_bracket=True)[0])
+        assert torch.equal(got, cp_objective.cp_histogram_batched(x, edges)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_histogram_wide_ladder_equals_plain(cuda, dtype):
+    """8192 bins: K1's shared-histogram design, opting in past 48 KB."""
+    n = (1 << 20) + 3
+    x = _data(3, n, 6, cuda).to(dtype)
+    for edges in (_wide_edges(3, cuda), _first_sweep_edges(x, 8192)):
+        assert cp_objective.hist_rows_layout(edges.shape[1], 0, n,
+                                             True) == "shared"
+        got, _ = cp_objective.cp_histogram_batched(x, edges,
+                                                   full_bracket=True)
+        want, _ = ref.cp_histogram_batched_ref(x, edges, want_sums=False)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("xdt,wdt", WDTYPES)
+@pytest.mark.parametrize("nbins", [128, 8192])
+def test_weighted_row_histogram_designs_equal_plain(cuda, xdt, wdt, nbins):
+    """K1w's lane-private design (128 bins, ``full_bracket``, rows of
+    LANE_ROWS_MIN_N + 3 elements) and grouped design (8192 bins) on the
+    first sweep's ladder: counts and integer masses bit for bit; dense
+    masses within the f32 chain of the f64 sums, two launches
+    identical."""
+    n = cp_objective.LANE_ROWS_MIN_N + 3
+    x = _data(2, n, 7, cuda)
+    edges = _first_sweep_edges(x, nbins)
+    assert cp_objective.hist_rows_layout(edges.shape[1], 1, n, True) == (
+        "lane" if nbins == 128 else "grouped")
+    xq, w = x.to(xdt), _int_weights((2, n), 7, cuda).to(wdt)
+    cnt, mass, _ = cp_objective.wcp_histogram_batched(xq, w, edges,
+                                                      full_bracket=True)
+    want = ref.wcp_histogram_batched_ref(xq, w, edges, want_sums=False)
+    assert torch.equal(cnt, want[0]) and torch.equal(mass, want[1])
+    wd = _dense_weights((2, n), 8, cuda)
+    mass = cp_objective.wcp_histogram_batched(x, wd, edges,
+                                              full_bracket=True)[1]
+    again = cp_objective.wcp_histogram_batched(x, wd, edges,
+                                               full_bracket=True)[1]
+    assert torch.equal(_bits(mass), _bits(again))
+    exact = ref.wcp_histogram_batched_ref(x, wd.double(), edges,
+                                          want_sums=False)[1]
+    bound = _f32_chain(n) * 2.0 ** -24 * exact
+    assert bool(((mass.double() - exact).abs() <= bound).all())
+
+
+def test_row_masses_ignore_the_other_rows(cuda):
+    """K1w at 1024 block partials with dense weights, in both designs: each
+    of 16 rows alone gives its entry's counts and masses bit for bit."""
+    n = (1 << 23) + 3
+    assert cp_objective.fg_blocks(n) == cp_objective.FG_MAX_BLOCKS
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((16, n), generator=g, device=cuda)
+    w = torch.rand((16, n), generator=g, device=cuda) + 0.5
+    edges = _first_sweep_edges(x, 128)
+    for full in (True, False):  # the lane-private and grouped designs
+        cnt, mass, _ = cp_objective.wcp_histogram_batched(
+            x, w, edges, full_bracket=full)
+        for r in range(16):
+            c1, m1, _ = cp_objective.wcp_histogram_batched(
+                x[r:r + 1], w[r:r + 1], edges[r:r + 1], full_bracket=full)
+            assert torch.equal(cnt[r:r + 1], c1)
+            assert torch.equal(_bits(mass[r:r + 1]), _bits(m1))
+
+
+@pytest.mark.parametrize("ladders", ["first sweep", "narrow"])
+def test_ladder_masses_ignore_the_other_ladders(cuda, ladders):
+    """K3w at 1024 block partials with dense weights, on the ladders of a
+    16-quantile descent (the first sweep's identical ones, then the
+    distinct narrow ones it picks): each ladder alone, and the 16 in
+    another order, give their entries' counts and masses bit for bit."""
+    n = (1 << 23) + 3
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(n, generator=g, device=cuda)
+    w = torch.rand(n, generator=g, device=cuda) + 0.5
+    e = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
+    e = e.contiguous()
+    if ladders == "narrow":
+        ks = selection.ranks_from_quantiles(np.arange(1, 17) / 17, n)
+        cnt1 = cp_objective.cp_histogram_multi(x, e)[0]
+        cum = torch.cumsum(cnt1[:, :-1], dim=-1, dtype=torch.int32)
+        yl, yr, *_ = selection.binned_descent_step(
+            cum, e, e[:, 0], e[:, -1], ks.to(cuda))
+        e = ref.bin_edges(yl, yr, 128).contiguous()
+    cnt, mass, _ = cp_objective.wcp_histogram_multi(x, w, e)
+    for j in range(16):
+        c1, m1, _ = cp_objective.wcp_histogram(x, w, e[j])
+        assert torch.equal(cnt[j], c1)
+        assert torch.equal(_bits(mass[j]), _bits(m1))
+    perm = torch.randperm(16, generator=torch.Generator(device=cuda)
+                          .manual_seed(13), device=cuda)
+    cp, mp, _ = cp_objective.wcp_histogram_multi(x, w, e[perm].contiguous())
+    assert torch.equal(cnt[perm], cp)
+    assert torch.equal(_bits(mass[perm]), _bits(mp))
