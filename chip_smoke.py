@@ -99,14 +99,21 @@ Phases (any failure raises and the script exits non-zero):
    bound.
 
 11. the per-slot sums legs K1s, K1ws (``hist_batched.cu``) and K3s, K3ws
-   (``hist_multi.cu``) against their plain versions at the K1 and K3
-   shapes above (``N_ODD``, K = 64, 8192 bins and the K = 1 views
+   (``hist_multi_sums.cu``, the sorted-tile design; ``hist_multi.cu``'s
+   grouped design on ladders too wide for one a block) against their plain
+   versions at the K1 and K3 shapes above (``N_ODD``, K = 64, 8192 bins,
+   K = 2 at 12288 bins for the grouped design, and the K = 1 views
    included), x and w each f32 and bf16: counts, masses and sums bit for
    bit on integer data whose slot totals stay below 2^24, with ±inf, NaN
    and ±0 planted (NaN and inf slots equal with ``equal_nan``); on randn
-   with the SPECIALS each slot sum within ``f32_chain`` * 2^-24 of the f64
+   with the SPECIALS each slot sum within the leg's chain (``f32_chain``,
+   or ``sorted_chain`` for the sorted-tile design) * 2^-24 of the f64
    plain version (relative to the slot's sum of |values|); two launches
-   identical;
+   identical; at n = 2^23 + 3 (1024 blocks) with dense weights each of 16
+   ladders alone, and the 16 permuted, equal their entries among 16, bit
+   for bit, on K3s and K3ws, on four ladder sets (``identity_ladders``:
+   the first sweep's identical ladders, the narrow ones, the five bracket
+   kinds cycled, the polished first sweep's distinct ones);
 12. ``method='binned_polish'`` at full size, each run's launch counts read
    from zero and only the sums legs allowed to launch (one per sweep):
    ``median`` of 2^27 f32 and bf16 (K1s), ``select_rows`` on (64, 2^20)
@@ -120,10 +127,13 @@ Phases (any failure raises and the script exits non-zero):
    ``reselect`` with 0/1 weights on the same stream, and
    ``order_statistic(method='cp', prior=cold)`` at n = 50,000 (1 pass);
 14. timings: each sums leg against its bound, its no-sums twin and its
-   plain version; the polished median, rows batch and 16 quantiles against
-   their 'binned' twins with sweeps per answer; one warm tracker tick
-   against a cold median on the same tick's data, each with a stats /
-   loop / finalize breakdown.
+   plain version, K3s and K3ws also on the polished first sweep; the
+   polished median, rows batch, 16 quantiles and 16 weighted quantiles
+   against their 'binned' twins with sweeps per answer, the multi-k ones
+   with loop and finalize; one warm tracker tick against a cold median on
+   the same tick's data, each with a stats / loop / finalize breakdown;
+   the build report of ``hist_multi_sums.cu`` (registers, spills, shared
+   bytes, blocks per SM).
 
 Every pass with f32 block partials (K2, K4, and the histogram legs with
 rows: K1w, K1s, K1ws, K3w, K3s, K3ws) sums them with one ``sum_blocks``
@@ -713,6 +723,28 @@ def f32_chain(cpo, n: int) -> int:
     return per_thread + 32 + 5 + 8 + nblk
 
 
+def sorted_chain(cpo, n: int) -> int:
+    """The longest chain of f32 additions a value goes through in K3s's
+    and K3ws's sorted-tile design (``hist_multi_sums.cu``) at length n: its
+    strip (``SORTED_ITEMS`` sorted positions), the strips of a slot (at
+    most ``SORTED_TILE / SORTED_ITEMS``; the sums of the strips before or
+    after a strip are shorter chains: a warp scan and the warps), the
+    chunks of its block, and ``sum_blocks`` over the fg_blocks(n) partials
+    (at most nblk, as in ``f32_chain``)."""
+    nblk = cpo.fg_blocks(n)
+    chunks = -(-n // cpo.SORTED_TILE)
+    return (cpo.SORTED_ITEMS + cpo.SORTED_TILE // cpo.SORTED_ITEMS
+            + -(-chunks // nblk) + nblk)
+
+
+def sums_chain(cpo, n: int, nedges: int, nrows: int) -> int:
+    """The chain of the design that serves a K3s (``nrows`` 1) or K3ws (2)
+    call on ladders of ``nedges`` edges."""
+    if cpo.hist_multi_sums_layout(nedges, nrows) == "sorted":
+        return sorted_chain(cpo, n)
+    return f32_chain(cpo, n)
+
+
 def int_weights(shape, seed: int) -> torch.Tensor:
     """Integers 0..7, sparse enough that a row's total stays below 2^23,
     and zero over x in (0.5, 0.75] of ``special_data`` (the caller zeroes
@@ -871,7 +903,80 @@ def rows_alone_equal_batch(cpo, ref, check: bool = True) -> bool:
     return same
 
 
-def ladders_alone_equal_among_16(cpo, ref, sel, check: bool = True) -> dict:
+def polish_first_edges(sel, obj, x, k, w=None) -> torch.Tensor:
+    """The polished first sweep's ladders, as the engine builds them: the
+    seed state and the analytic seed cut of a shared-x solve on ``x`` for
+    targets ``k`` (ranks, or target masses with weights ``w``), one
+    ``polish_edges`` ladder per target over [min, max], half its edges
+    around its own cut (16 distinct ladders for 16 targets)."""
+    ev = obj.SharedEvaluator(x, k, **({} if w is None else {"weights": w}))
+    s0, xmin, xmax, kk, _, xmean = sel._seed_state(ev)
+    cut0 = sel._seed_cut(ev, kk, xmin, xmax, xmean)
+    bad = ~torch.isfinite(cut0) | (cut0 <= s0.yL) | (cut0 >= s0.yR)
+    tp = torch.where(bad, 0.5 * (s0.yL + s0.yR), cut0)
+    return sel.polish_edges(s0.yL, s0.yR, tp, 128).contiguous()
+
+
+def identity_ladders(cpo, ref, sel, obj, x) -> dict:
+    """The ladder sets of the company identities, on ``x`` (n,): a
+    16-quantile descent's first sweep (16 identical ladders over [min,
+    max]), the distinct narrow ladders its descent step picks, the five
+    bracket kinds cycled over 16 (overlapping brackets), and the polished
+    first sweep (``polish_first_edges``: 16 distinct full-range ladders)."""
+    e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
+    e1 = e1.contiguous()
+    ks = sel.ranks_from_quantiles(QS16, x.numel()).to(DEVICE)
+    cnt1 = cpo.cp_histogram_multi(x, e1)[0]
+    cum = torch.cumsum(cnt1[:, :-1], dim=-1, dtype=torch.int32)
+    yl, yr, *_ = sel.binned_descent_step(cum, e1, e1[:, 0], e1[:, -1], ks)
+    kinds = bracket_kinds()
+    return {"first sweep": e1,
+            "narrow": ref.bin_edges(yl, yr, 128).contiguous(),
+            "5 kinds cycled": edge_ladders(ref, [kinds[j % 5]
+                                                 for j in range(16)], 128),
+            "polished first sweep": polish_first_edges(sel, obj, x, ks)}
+
+
+def same_outputs(a, b) -> bool:
+    """Two histogram results equal, counts and f32 rows bit for bit."""
+    return all(torch.equal(u, v) if u.dtype == torch.int32 else
+               same_bits(u, v) for u, v in zip(a, b))
+
+
+def sums_ladders_alone_equal_among_16(cpo, ref, sel, obj,
+                                      check: bool = True) -> dict:
+    """K3s and K3ws at n = N_IDENT (1024 block partials), K3ws with dense
+    weights: per ladder set of ``identity_ladders``, whether each of 16
+    ladders alone (the K = 1 views) gives the same counts, sums and masses,
+    bit for bit, as its entry among the 16, and the 16 permuted the same as
+    the 16 reordered (raises if not, with ``check``)."""
+    x = torch.randn(N_IDENT, generator=gen(306), device=DEVICE)
+    wd = dense_weights(N_IDENT, 307)
+    perm = torch.randperm(16, generator=gen(308), device=DEVICE)
+    legs = (("k3s", lambda e: cpo.cp_histogram_multi(x, e, want_sums=True),
+             lambda e: cpo.cp_histogram(x, e, want_sums=True)),
+            ("k3ws", lambda e: cpo.wcp_histogram_multi(x, wd, e,
+                                                       want_sums=True),
+             lambda e: cpo.wcp_histogram(x, wd, e, want_sums=True)))
+    out = {}
+    for label, e in identity_ladders(cpo, ref, sel, obj, x).items():
+        for leg, multi, one in legs:
+            got = multi(e)
+            same = all(same_outputs([g[j] for g in got], one(e[j]))
+                       for j in range(16))
+            same &= same_outputs([g[perm] for g in got],
+                                 multi(e[perm].contiguous()))
+            out[f"{leg} {label}"] = same
+            if check and not same:
+                raise AssertionError(f"{leg}: a ladder alone or permuted "
+                                     f"differs from its entry among 16 "
+                                     f"({label}; 1024 blocks, dense "
+                                     f"weights)")
+    return out
+
+
+def ladders_alone_equal_among_16(cpo, ref, sel, obj,
+                                 check: bool = True) -> dict:
     """K3w at n = N_IDENT (1024 block partials) with dense weights: whether
     each of 16 ladders alone gives the same counts and masses, bit for bit,
     as its entry among the 16, and a permutation of the 16 the same as the
@@ -883,17 +988,8 @@ def ladders_alone_equal_among_16(cpo, ref, sel, check: bool = True) -> dict:
     so their masses may follow their company)."""
     x = torch.randn(N_IDENT, generator=gen(303), device=DEVICE)
     wd = dense_weights(N_IDENT, 304)
-    e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
-    e1 = e1.contiguous()
-    ks = sel.ranks_from_quantiles(QS16, N_IDENT).to(DEVICE)
-    cnt1 = cpo.cp_histogram_multi(x, e1)[0]
-    cum = torch.cumsum(cnt1[:, :-1], dim=-1, dtype=torch.int32)
-    yl, yr, *_ = sel.binned_descent_step(cum, e1, e1[:, 0], e1[:, -1], ks)
-    kinds = bracket_kinds()
-    cases = {"first sweep": e1,
-             "narrow": ref.bin_edges(yl, yr, 128).contiguous(),
-             "5 kinds cycled": edge_ladders(ref, [kinds[j % 5]
-                                                  for j in range(16)], 128)}
+    cases = identity_ladders(cpo, ref, sel, obj, x)
+    del cases["polished first sweep"]
     perm = torch.randperm(16, generator=gen(305), device=DEVICE)
     out = {}
     for label, e in cases.items():
@@ -943,7 +1039,7 @@ def check_k2w(cpo, ref) -> dict:
     return chk.result()
 
 
-def check_k3w(cpo, ref, sel) -> dict:
+def check_k3w(cpo, ref, sel, obj) -> dict:
     kinds = bracket_kinds()
     chk = WeightedCheck("K3w")
     cases = ((N_BIG, 61, [("16 identical", [kinds[1]] * 16, 128),
@@ -979,7 +1075,7 @@ def check_k3w(cpo, ref, sel) -> dict:
             chk.repeat(lambda: cpo.wcp_histogram_multi(x32, wd32, e)[:2],
                        f"n={n} {label}")
         del x32, wi32, wd32, x, wi
-    ident = ladders_alone_equal_among_16(cpo, ref, sel)
+    ident = ladders_alone_equal_among_16(cpo, ref, sel, obj)
     log(f"K3w hist_multi weighted == plain version: counts and masses bit for "
         f"bit with integer weights at n=2^27 K=16 (identical and cycled "
         f"ladders), n={N_ODD} K=64, K=3 at 8192 bins and K=1 "
@@ -1489,8 +1585,9 @@ def check_sums_rows(cpo, ref) -> tuple:
     return c1s.result(), c1ws.result()
 
 
-def check_sums_multi(cpo, ref) -> tuple:
-    """K3s and K3ws against their plain versions at the K3 shapes."""
+def check_sums_multi(cpo, ref, sel, obj) -> tuple:
+    """K3s and K3ws against their plain versions at the K3 shapes, and
+    their company identities (``sums_ladders_alone_equal_among_16``)."""
     kinds = bracket_kinds()
     c3s, c3ws = SumsCheck("K3s"), SumsCheck("K3ws")
     cases = ((N_BIG, 121, [("16 identical", [kinds[1]] * 16, 128),
@@ -1498,7 +1595,11 @@ def check_sums_multi(cpo, ref) -> tuple:
                             [kinds[j % 5] for j in range(16)], 128)]),
              (N_ODD, 122, [("K=64", [kinds[j % 5] for j in range(64)], 128),
                            ("K=3 at 8192 bins", [kinds[j] for j in range(3)],
-                            8192)]))
+                            8192),
+                           # past the sorted tile's shared memory: the
+                           # grouped design
+                           ("K=2 at 12288 bins", [kinds[j] for j in range(2)],
+                            12288)]))
     for n, seed, ladders in cases:
         xi = int_sparse_data(1, n, seed)[0]
         wi = int_weights((n,), seed + 1)
@@ -1527,29 +1628,38 @@ def check_sums_multi(cpo, ref) -> tuple:
         del xi, wi
         x = special_data(1, n, seed + 2)[0]
         wd = dense_weights(n, seed + 3)
-        chain = f32_chain(cpo, n)
         plain = ref.wcp_histogram_multi_ref
         for label, ladder, nbins in ladders:
             e = edge_ladders(ref, ladder, nbins)
             got = cpo.cp_histogram_multi(x, e, want_sums=True)
-            c3s.near(got[1], *f64_sums(plain, x, None, e), got[0], chain,
-                     f"n={n} {label}")
+            c3s.near(got[1], *f64_sums(plain, x, None, e), got[0],
+                     sums_chain(cpo, n, nbins + 1, 1), f"n={n} {label}")
             got = cpo.wcp_histogram_multi(x, wd, e, want_sums=True)
-            c3ws.near(got[2], *f64_sums(plain, x, wd, e), got[0], chain,
-                      f"n={n} {label}")
+            c3ws.near(got[2], *f64_sums(plain, x, wd, e), got[0],
+                      sums_chain(cpo, n, nbins + 1, 2), f"n={n} {label}")
             c3s.repeat(lambda: cpo.cp_histogram_multi(x, e, want_sums=True),
                        f"n={n} {label}")
             c3ws.repeat(lambda: cpo.wcp_histogram_multi(x, wd, e,
                                                         want_sums=True),
                         f"n={n} {label}")
         del x, wd
-    log(f"K3s/K3ws hist_multi sums legs == plain version: counts, masses and "
-        f"sums bit for bit on integer data with inf/NaN/±0 at n=2^27 K=16 "
-        f"(identical and cycled ladders), n={N_ODD} K=64, K=3 at 8192 bins "
-        f"and K=1 (cp_histogram / wcp_histogram), x and w each f32 and bf16; "
-        f"randn sums within {c3s.bound:.3g} of f64 (worst {c3s.rel:.3g} / "
-        f"{c3ws.rel:.3g}), two launches identical")
-    return c3s.result(), c3ws.result()
+    ident = sums_ladders_alone_equal_among_16(cpo, ref, sel, obj)
+    log(f"K3s/K3ws hist_multi_sums sums legs == plain version: counts, "
+        f"masses and sums bit for bit on integer data with inf/NaN/±0 at "
+        f"n=2^27 K=16 (identical and cycled ladders), n={N_ODD} K=64, K=3 at "
+        f"8192 bins, K=2 at 12288 bins (the grouped design) and K=1 "
+        f"(cp_histogram / "
+        f"wcp_histogram), x and w each f32 and bf16; randn sums within "
+        f"{c3s.bound:.3g} of f64 (worst {c3s.rel:.3g} / {c3ws.rel:.3g}), two "
+        f"launches identical; at n={N_IDENT} with dense weights a ladder "
+        f"alone and the 16 permuted == its entry among 16: "
+        f"{json.dumps(ident)}")
+    return ({**c3s.result(), "alone_equals_among_16": {
+                k.split(" ", 1)[1]: v for k, v in ident.items()
+                if k.startswith("k3s ")}},
+            {**c3ws.result(), "alone_equals_among_16": {
+                k.split(" ", 1)[1]: v for k, v in ident.items()
+                if k.startswith("k3ws ")}})
 
 
 def polish_path(sel, cpo) -> dict:
@@ -1759,7 +1869,6 @@ def sums_timings(sel, cpo, ref, obj, tick) -> dict:
     e2 = ref.bin_edges(yl, yr, 128).contiguous()
     cnt2, _ = cpo.cp_histogram_multi(x, e2)
     for label, e, c in (("first", e16, cnt16), ("narrow", e2, cnt2)):
-        nbytes, ops = k3_work(x, e, c)
         distinct = len({r.numpy().tobytes() for r in e.cpu()})
         out[f"k3s_{label}"] = dict(
             ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, e, want_sums=True),
@@ -1767,9 +1876,7 @@ def sums_timings(sel, cpo, ref, obj, tick) -> dict:
             twin_ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, e), reps=20),
             plain_ms=cuda_ms(lambda: ref.cp_histogram_multi_ref(
                 x, e, want_sums=True), reps=1, rounds=3),
-            # + the sums output and two selected adds per element and
-            # distinct ladder
-            bound=bound(nbytes + c.numel() * 4, ops + 2 * N_BIG * distinct),
+            bound=bound(*k3_sums_work(x, e, c)),
             distinct_ladders=distinct)
         out[f"k3ws_{label}"] = dict(
             ms=cuda_ms(lambda: cpo.wcp_histogram_multi(x, wd, e,
@@ -1779,41 +1886,17 @@ def sums_timings(sel, cpo, ref, obj, tick) -> dict:
                             reps=20),
             plain_ms=cuda_ms(lambda: ref.wcp_histogram_multi_ref(
                 x, wd, e, want_sums=True), reps=1, rounds=3),
-            # + w read once, masses and sums out, a product per element and
-            # four selected adds per element and distinct ladder
-            bound=bound(nbytes + N_BIG * 4 + 2 * c.numel() * 4,
-                        ops + N_BIG + 4 * N_BIG * distinct),
+            bound=bound(*k3_sums_work(x, e, c, wd)),
             distinct_ladders=distinct)
 
     # the polished multi-k first sweep: every target's ladder spans
     # [min, max] but centres half its edges on its own seed cut, so the 16
-    # ladders are distinct and every element lies inside all 16
-    ev = obj.SharedEvaluator(x, ks)
-    s0, xmin, xmax, kk, _, xmean = sel._seed_state(ev)
-    cut0 = sel._seed_cut(ev, kk, xmin, xmax, xmean)
-    bad = ~torch.isfinite(cut0) | (cut0 <= s0.yL) | (cut0 >= s0.yR)
-    tp = torch.where(bad, 0.5 * (s0.yL + s0.yR), cut0)
-    ep = sel.polish_edges(s0.yL, s0.yR, tp, 128).contiguous()
-    cntp, _ = cpo.cp_histogram_multi(x, ep)
-    nbytes, ops = k3_work(x, ep, cntp)
-    distinct = len({r.numpy().tobytes() for r in ep.cpu()})
-    out["k3s_polish_first"] = dict(
-        ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, ep, want_sums=True),
-                   reps=5),
-        twin_ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, ep), reps=5),
-        bound=bound(nbytes + cntp.numel() * 4, ops + 2 * N_BIG * distinct),
-        distinct_ladders=distinct)
-    cap = sel._default_cap_rows(N_BIG)
-    for tag, polish in (("binned", False), ("polish", True)):
-        out[f"quantiles_{tag}_loop_ms"] = cuda_ms(
-            lambda: sel.binned_loop_batched(ev, nbins=128, cap=cap,
-                                            polish=polish), reps=1, rounds=3)
-        s, xmin, xmax = sel.binned_loop_batched(ev, nbins=128, cap=cap,
-                                                polish=polish)
-        out[f"quantiles_{tag}_finalize_ms"] = cuda_ms(
-            lambda: sel._finalize_shared(ev.x, ev.k, s, cap, xmin, xmax),
-            reps=1, rounds=3)
-    del ev
+    # ladders are distinct and every element lies inside all 16 (K3ws: the
+    # weighted seed cuts of 16 target masses)
+    W = float(wd.double().sum())
+    wks = torch.tensor(QS16 * W, dtype=torch.float32, device=DEVICE)
+    out.update(k3_polish_first_times(sel, obj, cpo, x, ks, wd, wks))
+    out.update(polish_multi_times(sel, obj, x, ks, reps=3))
 
     # polished answers against 'binned', with sweeps per answer
     xr = torch.randn((ROWS, N_ROW), generator=gen(153), device=DEVICE)
@@ -1821,13 +1904,10 @@ def sums_timings(sel, cpo, ref, obj, tick) -> dict:
                        device=DEVICE)
     for label, call in (
             ("median", lambda m: sel.median(x, method=m)),
-            ("rows", lambda m: sel.select_rows(xr, kr, method=m)),
-            ("quantiles", lambda m: sel.quantiles(x, QS16, method=m))):
+            ("rows", lambda m: sel.select_rows(xr, kr, method=m))):
         for m in ("binned", "binned_polish"):
             tag = f"{label}_{'polish' if m == 'binned_polish' else 'binned'}"
-            out[f"{tag}_ms"] = cuda_ms(lambda: call(m), reps=1,
-                                       rounds=3 if label == "quantiles"
-                                       else 5)
+            out[f"{tag}_ms"] = cuda_ms(lambda: call(m), reps=1, rounds=5)
             out[f"{tag}_sweeps"] = int(call(m).iters.max())
     del xr
 
@@ -1850,6 +1930,66 @@ def sums_timings(sel, cpo, ref, obj, tick) -> dict:
             xt[None, :], ev.k, s, cap, xmin, xmax), reps=1, rounds=5)
         out[f"{tag}_sweeps"] = int(s.iters.max())
         out[f"{tag}_certified"] = bool(s.found_exact.all())
+    return out
+
+
+def k3_polish_first_times(sel, obj, cpo, x, ks, wd, wks, reps=5) -> dict:
+    """K3s and K3ws on the polished first sweep of 16 targets of ``x``
+    (``polish_first_edges``; K3ws with dense weights ``wd`` and target
+    masses ``wks``): ms, their no-sums twins (K3, K3w), their bounds."""
+    out = {}
+    for key, e, call, twin, w in (
+            ("k3s_polish_first", polish_first_edges(sel, obj, x, ks),
+             lambda e: cpo.cp_histogram_multi(x, e, want_sums=True),
+             lambda e: cpo.cp_histogram_multi(x, e), None),
+            ("k3ws_polish_first", polish_first_edges(sel, obj, x, wks, wd),
+             lambda e: cpo.wcp_histogram_multi(x, wd, e, want_sums=True),
+             lambda e: cpo.wcp_histogram_multi(x, wd, e), wd)):
+        cnt, _ = cpo.cp_histogram_multi(x, e)
+        distinct = len({r.numpy().tobytes() for r in e.cpu()})
+        out[key] = dict(ms=cuda_ms(lambda: call(e), reps=reps),
+                        twin_ms=cuda_ms(lambda: twin(e), reps=reps),
+                        bound=bound(*k3_sums_work(x, e, cnt, w)),
+                        distinct_ladders=distinct)
+    return out
+
+
+def polish_multi_times(sel, obj, x, ks, reps=3) -> dict:
+    """16 ``quantiles`` of ``x`` and 16 ``weighted_quantiles`` with 0/1
+    weights at density 1/16 (every mass exact), 'binned' against
+    'binned_polish': ms end to end, sweeps, and the loop (the stats pass
+    included) and the shared finalize."""
+    out = {}
+    w01 = (torch.rand(x.numel(), generator=gen(155), device=DEVICE)
+           < 1 / 16).float()
+    wks = torch.tensor(QS16 * float(w01.sum()), dtype=torch.float32,
+                       device=DEVICE)
+    cap = sel._default_cap_rows(x.numel())
+    for label, call, make in (
+            ("quantiles", lambda m: sel.quantiles(x, QS16, method=m),
+             lambda: obj.SharedEvaluator(x, ks)),
+            ("wquantiles",
+             lambda m: sel.weighted_quantiles(x, w01, QS16, method=m),
+             lambda: obj.SharedEvaluator(x, wks, weights=w01))):
+        for tag, m in (("binned", "binned"), ("polish", "binned_polish")):
+            out[f"{label}_{tag}_ms"] = cuda_ms(lambda: call(m), reps=1,
+                                               rounds=reps)
+            res = call(m)
+            out[f"{label}_{tag}_sweeps"] = int(res.iters.max())
+            out[f"{label}_{tag}_not_converged"] = int(
+                (res.status == sel.NOT_CONVERGED).sum())
+            ev = make()
+            out[f"{label}_{tag}_loop_ms"] = cuda_ms(
+                lambda: sel.binned_loop_batched(ev, nbins=128, cap=cap,
+                                                polish=m != "binned"),
+                reps=1, rounds=reps)
+            st, xmin, xmax = sel.binned_loop_batched(
+                ev, nbins=128, cap=cap, polish=m != "binned")
+            w = {"w": ev.w.to(ev.k.dtype)} if ev.weighted else {}
+            out[f"{label}_{tag}_finalize_ms"] = cuda_ms(
+                lambda: sel._finalize_shared(ev.x, ev.k, st, cap, xmin,
+                                             xmax, **w), reps=1, rounds=reps)
+            del ev, st
     return out
 
 
@@ -1958,6 +2098,26 @@ def k3_work(x, edges, cnt):
     steps = math.ceil(math.log2(edges.shape[1]))
     return nbytes, (2 * x.numel() * len(inside)
                     + sum(inside.values()) * steps)
+
+
+def k3_sums_work(x, edges, cnt, w=None):
+    """Bytes and operations that K3s (K3ws with ``w``) needs on this data:
+    one read of x (and w), the edges, and the counts and the f32 rows out;
+    per element and DISTINCT ladder the add of its count and the add of x
+    to its slot's sum (K3ws: of w to its mass and of w*x to its sum), and
+    for K3ws a product per element.  No search: which slot an element
+    takes is the work of a design (the sorted tile finds it by sorting,
+    shared by all ladders), not of the function."""
+    nrows = 1 if w is None else 2
+    n = x.numel()
+    nbytes = (n * x.element_size() + edges.numel() * 4
+              + cnt.numel() * 4 * (1 + nrows))
+    distinct = len({e.numpy().tobytes() for e in edges.cpu()})
+    ops = n * distinct * (1 + nrows)
+    if w is not None:
+        nbytes += n * w.element_size()
+        ops += n
+    return nbytes, ops
 
 
 def k_sweep(sel, cpo, xs, x, w=None) -> dict:
@@ -2265,6 +2425,73 @@ def hist_batched_build(_build, cpo) -> dict:
     return out
 
 
+def sorted_sums_instance(mangled: str):
+    """The mangled name of ``sorted_sums_kernel<T, W, L>``
+    (``hist_multi_sums.cu``) -> "T/W/leg" (leg K3s or K3ws), or None for
+    another function."""
+    m = re.search(r"sorted_sums_kernelI(f|13__nv_bfloat16)"
+                  r"(f|13__nv_bfloat16|S\w*?_)Li(\d)E", mangled)
+    if not m:
+        return None
+    t, w, leg = m.groups()
+    w = t if w.startswith("S") else w
+    return f"{_TYPES[t]}/{_TYPES[w]}/{'K3s' if leg == '1' else 'K3ws'}"
+
+
+def hist_multi_sums_build(_build, cpo) -> dict:
+    """K3s's and K3ws's build report (``hist_multi_sums.cu``): registers
+    and spills of each instance (ptxas; only when this process built the
+    library), and at 16 ladders of 129 edges the shared bytes a block asks
+    for (the kernel's layout, which must equal ``sorted_sums_smem``) and
+    the blocks an SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``;
+    a tree without the sorted-tile design reports none), and the static
+    shared bytes, which must stay within ``SORTED_STATIC_SMEM``."""
+    out = {"ptxas": ptxas_report(_build.build_log.get("hist_multi_sums", ""),
+                                 sorted_sums_instance)}
+    if "hist_multi_sums" not in _build.SOURCES:
+        return out
+    lib = _build.load("hist_multi_sums")
+    occ = lib.sorted_sums_blocks_per_sm
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    smem = lib.sorted_sums_smem
+    smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_longlong
+    static = lib.sorted_sums_static_smem
+    static.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    static.restype = ctypes.c_int
+    for rows, name in ((1, "k3s"), (2, "k3ws")):
+        sbytes = ctypes.c_longlong(0)
+        rc = static(rows, ctypes.byref(sbytes))
+        if rc != 0:
+            raise RuntimeError(f"attribute query of {name} failed: CUDA "
+                               f"error {rc}")
+        if sbytes.value > cpo.SORTED_STATIC_SMEM:
+            raise AssertionError(f"{name}: {sbytes.value} static shared "
+                                 f"bytes, SORTED_STATIC_SMEM allows "
+                                 f"{cpo.SORTED_STATIC_SMEM}")
+        blocks = ctypes.c_int(0)
+        rc = occ(rows, 129, 16, ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"occupancy query of {name} failed: CUDA "
+                               f"error {rc}")
+        nbytes = int(smem(rows, 16, 129))
+        if nbytes != cpo.sorted_sums_smem(16, 129, rows):
+            raise AssertionError(f"{name}: the kernel's layout takes {nbytes} "
+                                 f"shared bytes, sorted_sums_smem says "
+                                 f"{cpo.sorted_sums_smem(16, 129, rows)}")
+        leg = "K3s" if rows == 1 else "K3ws"
+        out[name] = {**out["ptxas"].get(f"f32/f32/{leg}", {}),
+                     "smem_bytes": nbytes,
+                     "static_smem_bytes": sbytes.value,
+                     "ladders_a_block": 16,
+                     "warps": cpo.SORTED_THREADS // 32,
+                     "blocks_per_sm": blocks.value,
+                     "tile": cpo.SORTED_TILE}
+    return out
+
+
 def lane_build(report: dict, leg: str, instance: str) -> dict:
     """A lane-private leg's registers, spills, shared bytes and blocks
     per SM from ``hist_batched_build``'s report."""
@@ -2397,6 +2624,51 @@ def k1w_outputs(cpo, ref) -> dict:
     return out
 
 
+def k3_sweep_times(sel, cpo, ref) -> dict:
+    """K3, K3w, K3s and K3ws through their wrappers at 2^27 f32, K = 16
+    (dense f32 w): the first sweep's 16 identical ladders and the distinct
+    narrow ones its descent step picks (ms)."""
+    x = torch.randn(N_BIG, generator=gen(151), device=DEVICE)
+    wd = dense_weights(N_BIG, 152)
+    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
+    e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
+    e1 = e1.contiguous()
+    cum = torch.cumsum(cpo.cp_histogram_multi(x, e1)[0][:, :-1], dim=-1,
+                       dtype=torch.int32)
+    yl, yr, *_ = sel.binned_descent_step(cum, e1, e1[:, 0], e1[:, -1], ks)
+    e2 = ref.bin_edges(yl, yr, 128).contiguous()
+    out = {}
+    for sweep, e in (("first", e1), ("narrow", e2)):
+        for leg, call in (
+                ("k3", lambda: cpo.cp_histogram_multi(x, e)),
+                ("k3w", lambda: cpo.wcp_histogram_multi(x, wd, e)),
+                ("k3s", lambda: cpo.cp_histogram_multi(x, e,
+                                                       want_sums=True)),
+                ("k3ws", lambda: cpo.wcp_histogram_multi(x, wd, e,
+                                                         want_sums=True))):
+            out[f"{leg}_{sweep}"] = cuda_ms(call, reps=20)
+    return out
+
+
+def k3_sums_outputs(cpo, ref) -> dict:
+    """K3s's and K3ws's counts, sums and masses at n = N_ODD on the five
+    bracket kinds cycled over 16 ladders: on integer data (every sum
+    exact) and on randn with the SPECIALS and dense weights, for
+    ``compare_outputs``."""
+    kinds = bracket_kinds()
+    e = edge_ladders(ref, [kinds[j % 5] for j in range(16)], 128)
+    out = {}
+    for label, x, w in (("int", int_sparse_data(1, N_ODD, 44)[0],
+                         int_weights((N_ODD,), 45)),
+                        ("dense", special_data(1, N_ODD, 46)[0],
+                         dense_weights(N_ODD, 47))):
+        out[f"k3s {label}"] = [t.tolist() for t in cpo.cp_histogram_multi(
+            x, e, want_sums=True)]
+        out[f"k3ws {label}"] = [t.tolist() for t in cpo.wcp_histogram_multi(
+            x, w, e, want_sums=True)]
+    return out
+
+
 def compare_times(sel, cpo, obj, ref, _build) -> dict:
     """What ``--compare`` reads from each tree: the two cp solves
     (``cp_solves``); K2 and K2w at one pivot on 2^27; K4 and K4w at K in
@@ -2407,7 +2679,13 @@ def compare_times(sel, cpo, obj, ref, _build) -> dict:
     sweeps (``hist_rows_times``), the row histogram's main path end to end
     (``rows_path_times``), hist_batched's build report, whether a K1w row
     alone and a K3w ladder alone get the same bits as in company; and the
-    outputs of K4/K4w and K1w for ``compare_outputs``."""
+    outputs of K4/K4w and K1w for ``compare_outputs``; K3, K3w, K3s and
+    K3ws at the first and narrow sweeps (``k3_sweep_times``), K3s and K3ws
+    on the polished first sweep, the 16-quantile and 16 weighted-quantile
+    paths 'binned' and polished with sweeps, loop and finalize
+    (``polish_multi_times``), whether a K3s or K3ws ladder alone gets the
+    same bits as among 16 (four ladder sets), hist_multi_sums's build
+    report, and K3s's and K3ws's outputs."""
     parts = {str(list(sh)): torch.rand(sh, generator=gen(211), device=DEVICE)
              for sh in (sum_blocks_shapes(cpo)[i] for i in (1, 5, 8, 9))}
     out = {"sum_blocks_device_ms": {k: graph_ms(lambda: cpo._sum_blocks(v))
@@ -2419,7 +2697,21 @@ def compare_times(sel, cpo, obj, ref, _build) -> dict:
            "k1w_row_alone_equals_batch": rows_alone_equal_batch(
                cpo, ref, check=False),
            "k3w_ladder_alone_equals_among_16": ladders_alone_equal_among_16(
-               cpo, ref, sel, check=False)}
+               cpo, ref, sel, obj, check=False),
+           "k3_sums_alone_equals_among_16":
+               sums_ladders_alone_equal_among_16(cpo, ref, sel, obj,
+                                                 check=False),
+           "k3_ms": k3_sweep_times(sel, cpo, ref),
+           "hist_multi_sums_build": hist_multi_sums_build(_build, cpo)}
+    x = torch.randn(N_BIG, generator=gen(151), device=DEVICE)
+    wd = dense_weights(N_BIG, 152)
+    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
+    wks = torch.tensor(QS16 * float(wd.double().sum()), dtype=torch.float32,
+                       device=DEVICE)
+    out["k3_ms"].update({k: v["ms"] for k, v in k3_polish_first_times(
+        sel, obj, cpo, x, ks, wd, wks, reps=3).items()})
+    out["polish_multi"] = polish_multi_times(sel, obj, x, ks)
+    del x, wd
     out["cp"] = cp_solves(sel, obj)
     x = torch.randn(N_BIG, generator=gen(32), device=DEVICE)
     wd = dense_weights(N_BIG, 92)
@@ -2471,6 +2763,7 @@ def compare_times(sel, cpo, obj, ref, _build) -> dict:
                 out["outputs"][f"{leg} K={k} {pset}"] = [
                     t.tolist() for t in got]
     out["outputs"].update(k1w_outputs(cpo, ref))
+    out["outputs"].update(k3_sums_outputs(cpo, ref))
     try:
         out["build"] = fg_multi_build(_build)
     except Exception as e:  # a tree whose build this parser does not read
@@ -2478,17 +2771,59 @@ def compare_times(sel, cpo, obj, ref, _build) -> dict:
     return out
 
 
+# ladder widths (edges) at which --designs times both K3s/K3ws designs
+DESIGN_WIDTHS = (129, 1025, 2049, 4097, 8193)
+
+
+def sums_design_times(cpo, ref) -> dict:
+    """K3s and K3ws (dense f32 w) in both designs, the sorted tile and the
+    grouped rows, on 2^27 f32 elements against K = 1 and K = 16 distinct
+    ladders that each span every element, at each of ``DESIGN_WIDTHS``
+    edges: ms per design, with the counts of the two designs checked
+    equal."""
+    x = torch.randn(N_BIG, generator=gen(171), device=DEVICE)
+    wd = dense_weights(N_BIG, 172)
+    pad = torch.arange(16, device=DEVICE, dtype=torch.float32) * 1e-3
+    out = {}
+    for nedges in DESIGN_WIDTHS:
+        e16 = ref.bin_edges(x.min() - pad, x.max() + pad,
+                            nedges - 1).contiguous()
+        for k in (1, 16):
+            e = e16[:k].contiguous()
+            for leg, w, key in (
+                    ("k3s", None, "cp_histogram_multi_sums"),
+                    ("k3ws", wd, "wcp_histogram_multi_sums")):
+                row, cnts = {}, []
+                for design in ("sorted", "grouped"):
+                    def call():
+                        return cpo._whist_multi(x, w, e, key, True,
+                                                design=design)
+                    cnts.append(call()[0])
+                    row[design] = cuda_ms(call, reps=3, rounds=3,
+                                          warmup=1)
+                if not torch.equal(*cnts):
+                    raise AssertionError(f"{leg} at {nedges} edges, K = {k}:"
+                                         f" the designs' counts differ")
+                row["layout"] = cpo.hist_multi_sums_layout(
+                    nedges, 1 if w is None else 2)
+                out[f"{leg} {nedges} edges K={k}"] = row
+                log(f"{leg} {nedges} edges K={k}: {row}")
+    return out
+
+
 def compare_outputs(a: dict, b: dict) -> dict:
     """Two trees' ``compare_times`` outputs: whether the counts (and the
-    masses with integer weights) are equal, and per leg (k4, k4w, k1w) how
-    many f32 sums or dense masses carry the same bits and the largest
-    relative difference of the others."""
+    masses and sums on integer data) are equal, and per leg (k4, k4w, k1w,
+    k3s, k3ws) how many f32 sums or dense masses carry the same bits and
+    the largest relative difference of the others."""
     exact, legs = True, {}
     for case, outs in a.items():
         # K4 (two sums, two counts), K4w (four sums, two counts), K1w
         # (counts, then masses): which outputs are integers
         if case.startswith("k1w "):
             ints = (0,) if "dense" in case else (0, 1)
+        elif case.startswith(("k3s ", "k3ws ")):
+            ints = (0,) if "dense" in case else tuple(range(len(outs)))
         else:
             nsums = 2 if case.startswith("k4 ") else 4
             ints = tuple(i for i in range(len(outs))
@@ -2581,6 +2916,10 @@ def main() -> None:
     ap.add_argument("--compare", type=Path, metavar="TREE",
                     help="time this tree against the repository copy TREE "
                          "instead of running the checks")
+    ap.add_argument("--designs", action="store_true",
+                    help="time K3s/K3ws in both designs at widths "
+                         "DESIGN_WIDTHS instead of running the checks; "
+                         "writes chiprun_out/designs.json")
     ap.add_argument("--times-of", type=Path, metavar="SRC",
                     help="print, as one JSON line, what --compare reads, "
                          "with the package under SRC")
@@ -2604,6 +2943,16 @@ def main() -> None:
     if args.compare:
         compare(args.compare, smi)
         return
+    if args.designs:
+        _build.build_all()
+        line = json.dumps({"device": name, "smi": smi,
+                           "build": hist_multi_sums_build(_build, cpo),
+                           "designs": sums_design_times(cpo, ref)})
+        out = ROOT / "chiprun_out"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "designs.json").write_text(line + "\n")
+        print(line, flush=True)
+        return
     if args.times_of:
         _build.build_all()
         print(json.dumps(compare_times(sel, cpo, obj, ref, _build)),
@@ -2625,7 +2974,7 @@ def main() -> None:
     k3_check = check_k3(cpo, ref)
     k4_check = check_k4(cpo, ref)
     w_checks = [check_k1w(cpo, ref), check_k2w(cpo, ref),
-                check_k3w(cpo, ref, sel), check_k4w(cpo, ref)]
+                check_k3w(cpo, ref, sel, obj), check_k4w(cpo, ref)]
     log(f"kernel checks took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2679,7 +3028,8 @@ def main() -> None:
     log(f"K4/K4w build (G = 16, f32): " + json.dumps(fgm))
 
     t0 = time.perf_counter()
-    s_checks = [*check_sums_rows(cpo, ref), *check_sums_multi(cpo, ref)]
+    s_checks = [*check_sums_rows(cpo, ref),
+                *check_sums_multi(cpo, ref, sel, obj)]
     log(f"sums-leg checks took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     polished = polish_path(sel, cpo)
@@ -2698,9 +3048,11 @@ def main() -> None:
     t0 = time.perf_counter()
     ts = sums_timings(sel, cpo, ref, obj, tick)
     del tick
+    hms = hist_multi_sums_build(_build, cpo)
     log(f"polish/warm timings took {time.perf_counter() - t0:.1f} s")
     log("polish and warm timings (ms, " + name + ", " + smi + "): "
         + json.dumps({**ts, **warm}))
+    log("K3s/K3ws build: " + json.dumps(hms))
 
     kernels = [
         {"name": "hist_batched (K1)", "route": "cuda",
@@ -2839,10 +3191,11 @@ def main() -> None:
          "wcp_histogram_batched_sums", "k1ws",
          "(1, 2^27) f32 x and dense f32 w, 128 bins, first-sweep edges, "
          "counts, masses and sums of w*x"),
-        ("shist_multi (K3s)", "hist_multi.cu", 197, "cp_histogram_multi_sums",
-         "k3s_first", "(2^27,) f32, K=16 identical first-sweep ladders, 128 "
-         "bins, counts and sums of x"),
-        ("wshist_multi (K3ws)", "hist_multi.cu", 197,
+        ("shist_multi_sums (K3s)", "hist_multi_sums.cu", 197,
+         "cp_histogram_multi_sums", "k3s_first",
+         "(2^27,) f32, K=16 identical first-sweep ladders, 128 bins, counts "
+         "and sums of x"),
+        ("wshist_multi_sums (K3ws)", "hist_multi_sums.cu", 197,
          "wcp_histogram_multi_sums", "k3ws_first",
          "(2^27,) f32 x and dense f32 w, K=16 identical first-sweep ladders, "
          "128 bins, counts, masses and sums of w*x"))
@@ -2865,11 +3218,30 @@ def main() -> None:
             row["narrow_bracket_ms"] = t["narrow_ms"]
         else:
             n = ts[tkey.replace("first", "narrow")]
+            pf = ts[tkey.replace("first", "polish_first")]
+            leg = tkey.split("_")[0]
             row.update(narrow_sweep_ms=n["ms"],
                        narrow_sweep_twin_ms=n["twin_ms"],
                        narrow_sweep_plain_ms=n["plain_ms"],
                        narrow_sweep_bound_ms=n["bound"][0],
-                       narrow_sweep_distinct_ladders=n["distinct_ladders"])
+                       narrow_sweep_distinct_ladders=n["distinct_ladders"],
+                       polished_first_sweep_ms=pf["ms"],
+                       polished_first_sweep_twin_ms=pf["twin_ms"],
+                       polished_first_sweep_bound_ms=pf["bound"][0],
+                       polished_first_sweep_bound_by=pf["bound"][1],
+                       polished_first_sweep_distinct_ladders=pf[
+                           "distinct_ladders"],
+                       design="each chunk of 4096 elements sorted once (CUB "
+                              "block radix sort) for all ladders of the "
+                              "block; per ladder the slot boundaries by "
+                              "searching the edge keys in the sorted chunk, "
+                              "each slot a direct sum over its sorted "
+                              "positions (strips of 16, the strips' scans "
+                              "for the end slots), in an order set by the "
+                              "chunk alone; ladders too wide for one a "
+                              "block (hist_multi_sums_layout): the grouped "
+                              "hist_multi.cu kernel",
+                       **hms.get(leg, {}))
         kernels.append(row)
     kernels.append(
         {"name": "sum_blocks (block sums of K2, K4 and the histogram legs "

@@ -17,7 +17,9 @@ and a weighted leg (a static specialization of the same source):
   view :func:`cp_histogram`, and :func:`wcp_histogram_multi` /
   :func:`wcp_histogram` (K3w) — one shared array binned against K ladders
   in one read (replaces ``_hist_kernel_multi``); with ``want_sums`` the
-  legs K3s (Σx) and K3ws (Σw·x);
+  legs K3s (Σx) and K3ws (Σw·x), in ``csrc/hist_multi_sums.cu``: each
+  chunk of the array sorted once for all ladders, each slot a direct sum
+  over its sorted positions;
 * K4 ``csrc/fg_multi.cu`` behind :func:`cp_partials_multi` and its K=1
   view :func:`cp_partials`, and :func:`wcp_partials_multi` /
   :func:`wcp_partials` (K4w) — the partials of K pivots from one read of a
@@ -42,7 +44,12 @@ bracket holds every element (``full_bracket``, the engine's first sweep):
 lane-private tables (K1 on such sweeps, K1w and K1s on such sweeps of rows
 of at least ``LANE_ROWS_MIN_N`` elements, at widths whose tables fit a
 block), a shared histogram (K1 otherwise) and grouped rows (K1w/K1s
-otherwise, and K1ws).
+otherwise, and K1ws).  K3s and K3ws take the sorted-tile design on
+every ladder of which one fits a block's shared memory (up to 12255
+edges for K3s, 9650 for K3ws), and the grouped rows of
+``csrc/hist_multi.cu`` on wider ones (:func:`hist_multi_sums_layout`: a
+rule on the width and the leg, never on K, so a ladder alone and among
+others runs the same design).
 
 Each wrapper checks what the kernel takes and raises on anything else,
 allocates the outputs, launches on the current stream, raises on a
@@ -108,6 +115,17 @@ HIST_OPTIN_SMEM = 227 * 1024
 # K4: at most 16 pivots share a block (four register accumulators each,
 # six on the weighted leg)
 FG_MULTI_GROUP = 16
+# K3s/K3ws, sorted-tile design: a block of SORTED_THREADS threads sorts
+# chunks of SORTED_TILE elements (SORTED_ITEMS a thread: its strip of sorted
+# positions) and holds at most HIST_MULTI_GROUP ladders; ladders too wide
+# for one a block take the grouped design
+SORTED_THREADS = 256
+SORTED_ITEMS = 16
+SORTED_TILE = SORTED_THREADS * SORTED_ITEMS
+# the sorted-tile kernel's static shared arrays (rep, dl, nd, wtot: 208
+# bytes for K3s, 272 for K3ws as built for sm_90a), rounded up: they count
+# against HIST_OPTIN_SMEM with the dynamic layout
+SORTED_STATIC_SMEM = 512
 # K1w/K3w and the sums legs: at most 8 warps per block, each with its own
 # f32 rows per ladder in shared memory (one: mass or sum; two: mass and
 # sum); the block count is fg_blocks(n), so the order of the sums depends
@@ -131,6 +149,9 @@ _SIGNATURES = {
     "shist_multi": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P],
     "wshist_multi": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32,
                      _P],
+    "shist_multi_sums": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
+    "wshist_multi_sums": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
+                          _P],
     "sum_blocks": [_P, _P, _I64, _I32, _I64, _P],
 }
 _fns: dict = {}
@@ -539,6 +560,77 @@ def whist_layout(k: int, nedges: int, nrows: int = 1) -> tuple[int, int]:
     return group, warps
 
 
+def sorted_sums_smem(group: int, nedges: int, nrows: int) -> int:
+    """Dynamic shared bytes of a K3s (``nrows`` 1) or K3ws (2) block of the
+    sorted-tile design (``Layout`` in ``csrc/hist_multi_sums.cu``): the
+    sorted chunk's keys and one row of values (the sort's own storage
+    reuses them), per row the sum of each thread's strip of
+    ``SORTED_ITEMS`` sorted positions and the exclusive sums of the strips
+    before and after it, and per ladder its edge keys and boundaries,
+    ``nrows`` f32 rows and the int counts of its ``nedges + 1`` slots."""
+    nslots = nedges + 1
+    return 4 * (2 * SORTED_TILE + 3 * nrows * SORTED_THREADS
+                + group * (2 * nedges + (nrows + 1) * nslots))
+
+
+def hist_multi_sums_layout(nedges: int, nrows: int) -> str:
+    """K3s's (``nrows`` 1) or K3ws's (2) design for ladders of ``nedges``
+    edges: ``"sorted"`` (``csrc/hist_multi_sums.cu``) wherever a block of
+    one such ladder fits ``HIST_OPTIN_SMEM`` (up to 12255 edges for K3s,
+    9650 for K3ws), else ``"grouped"`` (``csrc/hist_multi.cu``), which
+    fits wider ladders.  The sorted tile was as fast or faster at 16
+    ladders of every width timed, and at one ladder from 2049 edges on
+    (PERF.md); at one narrow ladder the grouped kernel is faster, but the
+    rule depends on the width and the leg alone, never on K or the other
+    ladders, so a ladder's sums are the same bits alone and in company.  A
+    rule on the call, never a fallback on error."""
+    fits = _sorted_fits(1, nedges, nrows)
+    return "sorted" if nedges >= 2 and fits else "grouped"
+
+
+def _sorted_fits(group: int, nedges: int, nrows: int) -> bool:
+    """Whether a sorted-tile block of ``group`` ladders fits
+    ``HIST_OPTIN_SMEM`` with the kernel's static arrays."""
+    return sorted_sums_smem(group, nedges, nrows) + SORTED_STATIC_SMEM <= \
+        HIST_OPTIN_SMEM
+
+
+def sorted_sums_group(k: int, nedges: int, nrows: int) -> int:
+    """Ladders per block of the sorted-tile design: the smallest power of
+    two that covers ``k`` up to ``HIST_MULTI_GROUP``, halved while the
+    block's dynamic and static shared bytes overflow ``HIST_OPTIN_SMEM``
+    (each group of ladders sorts the array again; the sums do not depend
+    on the grouping)."""
+    if not _sorted_fits(1, nedges, nrows):
+        raise ValueError(f"{nedges - 1} bins need "
+                         f"{sorted_sums_smem(1, nedges, nrows)} bytes of "
+                         f"shared memory per sorted-tile block with {nrows} "
+                         f"f32 row(s) per slot; a block holds at most "
+                         f"{HIST_OPTIN_SMEM - SORTED_STATIC_SMEM} besides "
+                         f"its static arrays")
+    group = 1
+    while group < min(k, HIST_MULTI_GROUP):
+        group *= 2
+    while group > 1 and not _sorted_fits(group, nedges, nrows):
+        group //= 2
+    return group
+
+
+def whist_multi_plan(k: int, nedges: int, nrows: int, want_sums: bool,
+                     design: str | None = None):
+    """``(library, ladders a block, extra launch arguments)`` of a K3w,
+    K3s (``nrows`` 1) or K3ws (2) launch on ``k`` ladders of ``nedges``
+    edges: a sums leg in ``design`` (by default
+    :func:`hist_multi_sums_layout`'s, which does not follow ``k``), the
+    sorted tile in ``hist_multi_sums``, K3w and the grouped design in
+    ``hist_multi`` with :func:`whist_layout`'s warps."""
+    design = design or hist_multi_sums_layout(nedges, nrows)
+    if want_sums and design == "sorted":
+        return "hist_multi_sums", sorted_sums_group(k, nedges, nrows), ()
+    group, warps = whist_layout(k, nedges, nrows)
+    return "hist_multi", group, (warps,)
+
+
 def _hist_rows(x: torch.Tensor, w, edges: torch.Tensor, want_sums: bool,
                key: str, full_bracket: bool = False):
     """Launch the row-wise histogram leg with f32 slot rows on ``x`` (B, n)
@@ -604,13 +696,15 @@ def wcp_partials_batched(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor):
 
 
 def _whist_multi(x: torch.Tensor, w, edges: torch.Tensor, key: str,
-                 want_sums: bool = False):
+                 want_sums: bool = False, design: str | None = None):
     """Launch the shared-x histogram leg with f32 slot rows on ``x`` (n,)
     and ``edges`` (K, nbins+1): K3w (``w``, no sums), K3s (no ``w``, sums)
-    or K3ws (``w`` and sums); then reduce the per-block rows with
-    :func:`_sum_blocks`; counts one launch under ``LAUNCHES[key]``.  Returns the int32
-    counts (K, nbins + 2) and the f32 rows (K, R, nbins + 2), as
-    :func:`_hist_rows`."""
+    or K3ws (``w`` and sums), the sums legs in the design
+    :func:`hist_multi_sums_layout` picks (``design`` names another, to time
+    or test both at one width); then reduce the per-block rows
+    with :func:`_sum_blocks`; counts one launch under ``LAUNCHES[key]``.
+    Returns the int32 counts (K, nbins + 2) and the f32 rows
+    (K, R, nbins + 2), as :func:`_hist_rows`."""
     _check_data(x, shared=True)
     if w is not None:
         _check_weights(w, x)
@@ -620,7 +714,7 @@ def _whist_multi(x: torch.Tensor, w, edges: torch.Tensor, key: str,
     k, nedges = edges.shape
     _check_side(edges, x, (k, nedges), "edges")
     nrows = 2 if w is not None and want_sums else 1
-    group, warps = whist_layout(k, nedges, nrows)
+    lib, group, extra = whist_multi_plan(k, nedges, nrows, want_sums, design)
     if -(-k // group) > MAX_ROWS:
         raise ValueError(f"at most {MAX_ROWS * group} ladders per launch, "
                          f"got {k}")
@@ -629,14 +723,14 @@ def _whist_multi(x: torch.Tensor, w, edges: torch.Tensor, key: str,
     part = torch.empty((nblk, k, nrows, nedges + 1), dtype=torch.float32,
                        device=x.device)
     if k > 0:
-        fn = _kernel_fn("hist_multi", x.dtype,
-                        None if w is None else w.dtype, sums=want_sums)
+        fn = _kernel_fn(lib, x.dtype, None if w is None else w.dtype,
+                        sums=want_sums)
         data = (x.data_ptr(),) if w is None else (x.data_ptr(), w.data_ptr())
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             rc = fn(*data, edges.data_ptr(), cnt.data_ptr(), part.data_ptr(),
-                    x.shape[0], k, nedges, group, nblk, warps, stream)
-        _raise_on(rc, "hist_multi")
+                    x.shape[0], k, nedges, group, nblk, *extra, stream)
+        _raise_on(rc, lib)
         LAUNCHES[key] += 1
     sums = _sum_blocks(part.view(1, nblk, k * nrows * (nedges + 1)))
     return cnt, sums.view(k, nrows, nedges + 1)

@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import selection  # noqa: E402
+from repro_torch.core import objective, selection  # noqa: E402
 from repro_torch.kernels import cp_objective, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -746,3 +746,111 @@ def test_ladder_masses_ignore_the_other_ladders(cuda, ladders):
     cp, mp, _ = cp_objective.wcp_histogram_multi(x, w, e[perm].contiguous())
     assert torch.equal(cnt[perm], cp)
     assert torch.equal(_bits(mass[perm]), _bits(mp))
+
+
+# ---------------------------------------------------------------------------
+# K3s and K3ws: the sorted-tile design, whose sums follow each ladder alone
+# ---------------------------------------------------------------------------
+
+
+def _descent_ladders(kind, x, ks, device):
+    """16 ladders of a 16-quantile descent on ``x``: the first sweep's
+    identical ones over [min, max], the distinct narrow ones its descent
+    step picks, the five bracket kinds cycled (overlapping), or the
+    polished first sweep's (each over [min, max], half its edges around its
+    own seed cut)."""
+    e = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
+    e = e.contiguous()
+    if kind == "narrow":
+        cnt1 = cp_objective.cp_histogram_multi(x, e)[0]
+        cum = torch.cumsum(cnt1[:, :-1], dim=-1, dtype=torch.int32)
+        yl, yr, *_ = selection.binned_descent_step(cum, e, e[:, 0],
+                                                   e[:, -1], ks)
+        e = ref.bin_edges(yl, yr, 128).contiguous()
+    elif kind == "cycled":
+        e = _ladders(16, device)
+    elif kind == "polished":
+        ev = objective.SharedEvaluator(x, ks)
+        s0, xmin, xmax, kk, _, xmean = selection._seed_state(ev)
+        cut = selection._seed_cut(ev, kk, xmin, xmax, xmean)
+        e = selection.polish_edges(s0.yL, s0.yR, cut, 128).contiguous()
+    return e
+
+
+@pytest.mark.parametrize("ladders", ["first sweep", "narrow", "cycled",
+                                     "polished"])
+def test_sums_ignore_the_other_ladders(cuda, ladders):
+    """K3s, and K3ws with dense weights, at 1024 block partials: each of 16
+    ladders alone, and the 16 in another order, give their entries'
+    counts, sums and masses bit for bit."""
+    n = (1 << 23) + 3
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn(n, generator=g, device=cuda)
+    w = torch.rand(n, generator=g, device=cuda) + 0.5
+    ks = selection.ranks_from_quantiles(np.arange(1, 17) / 17, n).to(cuda)
+    e = _descent_ladders(ladders, x, ks, cuda)
+    perm = torch.randperm(16, generator=torch.Generator(device=cuda)
+                          .manual_seed(16), device=cuda)
+    for multi, one in (
+            (lambda ee: cp_objective.cp_histogram_multi(x, ee,
+                                                        want_sums=True),
+             lambda e1: cp_objective.cp_histogram(x, e1, want_sums=True)),
+            (lambda ee: cp_objective.wcp_histogram_multi(x, w, ee,
+                                                         want_sums=True),
+             lambda e1: cp_objective.wcp_histogram(x, w, e1,
+                                                   want_sums=True))):
+        got = multi(e)
+        for j in range(16):
+            for a, b in zip(got, one(e[j])):
+                assert torch.equal(_bits(a[j]), _bits(b))
+        for a, b in zip(got, multi(e[perm].contiguous())):
+            assert torch.equal(_bits(a[perm]), _bits(b))
+
+
+@pytest.mark.parametrize("nedges", [129, 8193])
+@pytest.mark.parametrize("design", ["sorted", "grouped"])
+def test_sums_designs_equal_plain(cuda, nedges, design):
+    """Both designs of K3s/K3ws at a narrow and a wide ladder: counts, sums
+    and masses bit for bit on integer data."""
+    x = _int_data(1, 100_003, 17, cuda)[0]
+    w = torch.randint(0, 4, x.shape, device=cuda).float()
+    e = ref.bin_edges(torch.tensor([-60.0, -2.0, 0.0], device=cuda),
+                      torch.tensor([60.0, 2.0, 30.0], device=cuda),
+                      nedges - 1).contiguous()
+    for got, want in (
+            (cp_objective._whist_multi(x, None, e, "cp_histogram_multi_sums",
+                                       True, design=design),
+             ref.cp_histogram_multi_ref(x, e, want_sums=True)),
+            (cp_objective._whist_multi(x, w, e, "wcp_histogram_multi_sums",
+                                       True, design=design),
+             ref.wcp_histogram_multi_ref(x, w, e, want_sums=True))):
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1].unbind(1), want[1:]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("nedges,weighted", [(767, False), (604, True)])
+def test_sorted_sums_at_the_shared_memory_edge(cuda, nedges, weighted):
+    """K3s at 767 edges and K3ws at 604, 16 ladders: the widths at which 16
+    ladders a block fit the dynamic shared bytes alone but not with the
+    kernel's static arrays; the launch takes 8 a block and equals the plain
+    versions bit for bit on integer data."""
+    nrows = 2 if weighted else 1
+    assert cp_objective.sorted_sums_group(16, nedges, nrows) == 8
+    x = _int_data(1, 100_003, 18, cuda)[0]
+    w = torch.randint(0, 4, x.shape, device=cuda).float() if weighted \
+        else None
+    lo = -60.0 + torch.arange(16, device=cuda, dtype=torch.float32)
+    e = ref.bin_edges(lo, lo + 100.0, nedges - 1).contiguous()
+    if weighted:
+        got = cp_objective._whist_multi(x, w, e, "wcp_histogram_multi_sums",
+                                        True, design="sorted")
+        want = ref.wcp_histogram_multi_ref(x, w, e, want_sums=True)
+    else:
+        got = cp_objective._whist_multi(x, None, e,
+                                        "cp_histogram_multi_sums", True,
+                                        design="sorted")
+        want = ref.cp_histogram_multi_ref(x, e, want_sums=True)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1].unbind(1), want[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
