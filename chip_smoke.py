@@ -17,7 +17,10 @@ Phases (any failure raises and the script exits non-zero):
    ``sum_blocks.cu``, which sums the block partials of K2, K4 and the
    histogram legs with f32 rows, against the f64 sum at the shapes of the
    main path's launches (within its f32 chain; two launches and each
-   column alone bit for bit);
+   column alone bit for bit); ``row_sums`` (the rows path's per-row sums,
+   ``sum_blocks.cu``) against its plain version: masses bit for bit with
+   integer weights, dense sums within their chain of f64, each row alone
+   the same bits as in its batch;
 2. K1 (row histogram) against its plain version on the card, counts equal
    bit for bit, at the main path's (1, 2^27) and (64, 2^20) and at an n
    that is a multiple of no grid stride (``K1_SHAPES``), f32 and bf16,
@@ -35,8 +38,10 @@ Phases (any failure raises and the script exits non-zero):
    bit for bit: n = 2^27 with K = 16 identical first-sweep ladders and
    with the five ladder kinds cycled over K = 16, n = ``N_ODD`` with
    K = 64 (four groups of 16 ladders), with K = 3 at 8192 bins (one ladder
-   per block, past 48 KB of shared memory) and with K = 1 through
-   ``cp_histogram``;
+   per block, past 48 KB of shared memory), 16 staggered ladders, and
+   with K = 1 through ``cp_histogram``; the first sweep's identical
+   ladders in both designs (K1's lane kernel on the one ladder with
+   ``full_bracket``, K3's buckets without);
 5. K4 (shared-x multi-pivot partials) against its plain version at
    (2^27, 16), (50,000, 16), (``N_ODD``, 64) and (``N_ODD``, 17) with
    inf, -inf and NaN pivots (the kernel's general path), and K = 1
@@ -72,9 +77,11 @@ Phases (any failure raises and the script exits non-zero):
    at the first sweep's ladder and at 8192 bins (the grouped design), and
    at n = 2^23 + 3 (1024 blocks) with dense weights each of 16 rows alone
    gives the same bits as its entry in the batch; K3w at that n with dense
-   weights: each of 16 ladders alone (the first sweep's identical ones,
-   and the distinct narrow ones a descent step picks) equals its entry
-   among the 16, and a permutation of the 16 changes nothing; K4w also
+   weights: each of 16 ladders alone equals its entry among the 16, and a
+   permutation of the 16 changes nothing, on every set of
+   ``identity_ladders`` (identical, disjoint narrow, nested and disjoint
+   cycled, partly overlapping staggered, fully overlapping polished
+   ladders); K4w also
    at (``N_ODD``, 17) with non-finite pivots, with the launch identities
    of phase 5 (against K2w) on integer and dense weights;
 9. the weighted paths at full size through their public entry points, the
@@ -83,7 +90,9 @@ Phases (any failure raises and the script exits non-zero):
    at density 1/16 (K1w; every mass exact, so the value equals a
    ``torch.sort`` + f64 cumulative-mass oracle bit for bit), the same with
    dense weights (checked by a mass interval of stated width), a bf16-x
-   median, ``weighted_select_rows`` on (64, 2^20) with integer weights,
+   median, ``weighted_select_rows`` on (64, 2^20) with integer weights
+   (and, with dense weights and on ``select_rows(method='cp')``, each row
+   alone and the 64 permuted the same bits as the batch in every field),
    ``weighted_quantiles`` at 16 levels (K3w, one launch per sweep),
    ``weighted_order_statistic(method='cp')`` at 2^27 and auto at n =
    50,000 (K2w), ``weighted_multi_order_statistic(method='cp')`` at 16
@@ -111,9 +120,10 @@ Phases (any failure raises and the script exits non-zero):
    plain version (relative to the slot's sum of |values|); two launches
    identical; at n = 2^23 + 3 (1024 blocks) with dense weights each of 16
    ladders alone, and the 16 permuted, equal their entries among 16, bit
-   for bit, on K3s and K3ws, on four ladder sets (``identity_ladders``:
+   for bit, on K3s and K3ws, on five ladder sets (``identity_ladders``:
    the first sweep's identical ladders, the narrow ones, the five bracket
-   kinds cycled, the polished first sweep's distinct ones);
+   kinds cycled, staggered ones, the polished first sweep's distinct
+   ones);
 12. ``method='binned_polish'`` at full size, each run's launch counts read
    from zero and only the sums legs allowed to launch (one per sweep):
    ``median`` of 2^27 f32 and bf16 (K1s), ``select_rows`` on (64, 2^20)
@@ -305,6 +315,14 @@ def full_kw(cpo, full: bool = True) -> dict:
     return {"full_bracket": full} if "full_bracket" in params else {}
 
 
+def k3_kw(cpo, full: bool = True, fn=None) -> dict:
+    """The ``full_bracket`` keyword of K3's wrapper (or ``fn``, K3w's):
+    every bracket holds every element, the first sweep, where identical
+    ladders bin one ladder; for a tree whose wrapper takes it."""
+    params = inspect.signature(fn or cpo.cp_histogram_multi).parameters
+    return {"full_bracket": full} if "full_bracket" in params else {}
+
+
 def k1_designs(cpo, nedges: int, nrows: int, n: int):
     """The ``full_bracket`` values that reach distinct designs of K1
     (``nrows`` 0), K1w/K1s (1) or K1ws (2) at this call."""
@@ -426,14 +444,18 @@ def check_k3(cpo, ref) -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         x = special_data(1, N_BIG, 21)[0].to(dtype)
-        for label, ladder in (("16 identical", [kinds[1]] * 16),
-                              ("5 kinds cycled over 16",
-                               [kinds[j % 5] for j in range(16)])):
-            e = edge_ladders(ref, ladder, 128)
-            got, _ = cpo.cp_histogram_multi(x, e)
+        for label, e in (
+                ("16 identical", edge_ladders(ref, [kinds[1]] * 16, 128)),
+                ("5 kinds cycled over 16",
+                 edge_ladders(ref, [kinds[j % 5] for j in range(16)], 128)),
+                ("16 identical first-sweep",
+                 first_sweep_edges(ref, x[None], 128).expand(16, -1)
+                 .contiguous())):
             want, _ = ref.cp_histogram_multi_ref(x, e, want_sums=False)
-            compare(got, want, f"n=2^27 {dtype} {label}")
-            assert torch.all(got.sum(dim=1) == N_BIG)
+            for full in (False, True):  # K3's kernel, K1's on one ladder
+                got, _ = cpo.cp_histogram_multi(x, e, **k3_kw(cpo, full))
+                compare(got, want, f"n=2^27 {dtype} {label} full={full}")
+                assert torch.all(got.sum(dim=1) == N_BIG)
         del x
         x = special_data(1, N_ODD, 22)[0].to(dtype)
         for k, nbins in ((64, 128), (3, 8192)):
@@ -441,14 +463,24 @@ def check_k3(cpo, ref) -> dict:
             got, _ = cpo.cp_histogram_multi(x, e)
             want, _ = ref.cp_histogram_multi_ref(x, e, want_sums=False)
             compare(got, want, f"n={N_ODD} {dtype} K={k} nbins={nbins}")
+        for label, e in (("16 staggered", edge_ladders(
+                ref, [(-2.0 + 0.25 * j, -1.0 + 0.25 * j) for j in range(16)],
+                128)), ("16 identical first-sweep", first_sweep_edges(
+                    ref, x[None], 128).expand(16, -1).contiguous())):
+            want, _ = ref.cp_histogram_multi_ref(x, e, want_sums=False)
+            for full in (False, True):
+                got, _ = cpo.cp_histogram_multi(x, e, **k3_kw(cpo, full))
+                compare(got, want, f"n={N_ODD} {dtype} {label} full={full}")
         for kind in kinds:
             e1 = edge_ladders(ref, [kind], 128)[0]
             got, _ = cpo.cp_histogram(x, e1)
             want, _ = ref.cp_histogram_ref(x, e1, want_sums=False)
             compare(got, want, f"n={N_ODD} {dtype} K=1 {kind}")
     log(f"K3 hist_multi == plain version bit for bit at n=2^27 K=16 "
-        f"(identical and cycled ladders), n={N_ODD} K=64, K=3 at 8192 bins "
-        f"and K=1 (cp_histogram), f32 and bf16, with inf/NaN/denormals")
+        f"(identical, cycled and first-sweep ladders, each with and without "
+        f"full_bracket), n={N_ODD} K=64, K=3 at 8192 bins, "
+        f"16 staggered ladders and K=1 (cp_histogram), f32 and bf16, with "
+        f"inf/NaN/denormals")
     return {"max_abs_err": float(worst)}
 
 
@@ -575,6 +607,115 @@ def check_sum_blocks(cpo) -> dict:
         f"{worst_rel:.3g}) at {sum_blocks_shapes(cpo)}; two launches and "
         f"columns alone bit for bit")
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel}
+
+
+ROW_MODES = (None, "mass", "moment", "le", "lt")  # None: the sum of x
+
+
+def row_sums_call(cpo, x, w, c, mode):
+    """``cpo.row_sums`` in ``mode`` (None: of ``x`` itself)."""
+    return cpo.row_sums(x, None if mode is None else w, c, mode or "mass")
+
+
+def row_sums_plain(ref, x, w, c, mode, dtype):
+    return ref.row_sums_ref(x, None if mode is None else w, c,
+                            mode or "mass", dtype=dtype)
+
+
+def check_row_sums(cpo, ref) -> dict:
+    """``row_sums`` (``csrc/sum_blocks.cu``, the rows path's per-row sums)
+    against its plain version at the rows batch (64, 2^20), one row of
+    2^27 and three of ``N_ODD``: with integer weights (every sum exact) on
+    data with the SPECIALS, the masses (all, at or below and below a data
+    value per row) bit for bit, x and w each f32 and bf16; on randn with
+    dense weights each mode (the sum of x, w, w*x, and the two masses)
+    within its f32 chain (``f32_chain``, and a rounding of each product)
+    * 2^-24 of the f64 sum of the terms' magnitudes; each row alone, and
+    two launches, the same bits."""
+    chk = WeightedCheck("row_sums")
+    for rows, n, seed in ((ROWS, N_ROW, 120), (1, N_BIG, 121), (3, N_ODD, 122)):
+        x32, wi32, _ = weighted_inputs(rows, n, seed)
+        c = x32[:, 12345].contiguous()  # a data value per row
+        for xdt, wdt in WDTYPES:
+            x, wi = x32.to(xdt), wi32.to(wdt)
+            for mode in ("mass", "le", "lt"):
+                chk.exact([cpo.row_sums(x, wi, c, mode)],
+                          [row_sums_plain(ref, x, wi, c, mode,
+                                          torch.float32)],
+                          f"({rows}, {n}) {xdt} {wdt} {mode}")
+        del x32, wi32, x, wi
+        x = torch.randn((rows, n), generator=gen(seed + 3), device=DEVICE)
+        wd = dense_weights((rows, n), seed + 4)
+        c = x[:, 12345].contiguous()
+        rtol = (f32_chain(cpo, n) + 1) * 2.0 ** -24
+        for mode in ROW_MODES:
+            got = row_sums_call(cpo, x, wd, c, mode)
+            exact = row_sums_plain(ref, x.double(), wd.double(), c.double(),
+                                   mode, torch.float64)
+            scale = row_sums_plain(ref, x.double().abs(), wd.double(),
+                                   c.double(), mode, torch.float64)
+            if mode in ("le", "lt"):
+                scale = exact
+            err = (got.double() - exact).abs()
+            if bool((err > rtol * scale).any()):
+                raise AssertionError(f"row_sums {mode} ({rows}, {n}) outside "
+                                     f"{rtol:.3g} of the f64 sums")
+            chk.dense_rel = max(chk.dense_rel, float((err / scale).max()))
+            chk.dense_bound = rtol
+            chk.repeat(lambda: [row_sums_call(cpo, x, wd, c, mode)],
+                       f"({rows}, {n}) {mode}")
+            for r in range(min(rows, 16)):
+                one = row_sums_call(cpo, x[r:r + 1], wd[r:r + 1],
+                                    c[r:r + 1], mode)
+                if not same_bits(one, got[r:r + 1]):
+                    raise AssertionError(f"row_sums {mode}: row {r} alone "
+                                         f"differs from its entry among "
+                                         f"{rows}")
+        del x, wd
+    log(f"row_sums == plain version: masses bit for bit with integer "
+        f"weights (x and w each f32 and bf16, with the SPECIALS), dense "
+        f"sums within {chk.dense_bound:.3g} of f64 (worst "
+        f"{chk.dense_rel:.3g}), rows alone and two launches the same bits, "
+        f"at (64, 2^20), (1, 2^27), (3, {N_ODD})")
+    return chk.result()
+
+
+def same_results(a, b) -> bool:
+    """Two SelectResults equal in every field, bit for bit."""
+    return all(same_bits(u, v) if u.dtype == torch.float32 else
+               torch.equal(u, v) for u, v in zip(a, b))
+
+
+def rows_answers_alone_equal_batch(sel, check: bool = True) -> dict:
+    """``weighted_select_rows`` on (64, 2^20) with dense weights and
+    ``select_rows(method='cp')`` (whose first pivot follows each row's
+    mean): whether every ``SelectResult`` field of each row alone, and of
+    the 64 rows permuted, equals its entry among the 64, bit for bit
+    (raises if not, with ``check``)."""
+    xr = torch.randn((ROWS, N_ROW), generator=gen(311), device=DEVICE)
+    wr = dense_weights((ROWS, N_ROW), 312)
+    wks = (torch.rand(ROWS, generator=gen(313), device=DEVICE)
+           * wr.sum(dim=1)).contiguous()
+    ks = torch.randint(1, N_ROW + 1, (ROWS,), generator=gen(314),
+                       device=DEVICE)
+    perm = torch.randperm(ROWS, generator=gen(315), device=DEVICE)
+    every = torch.arange(ROWS, device=DEVICE)
+    cases = {"weighted dense": lambda r: sel.weighted_select_rows(
+                 xr[r], wr[r], wks[r]),
+             "counting cp": lambda r: sel.select_rows(xr[r], ks[r],
+                                                      method="cp")}
+    out = {}
+    for label, run in cases.items():
+        batch = run(every)
+        same = same_results(run(perm), [f[perm] for f in batch])
+        for r in range(ROWS):
+            same &= same_results(run(every[r:r + 1]),
+                                 [f[r:r + 1] for f in batch])
+        out[label] = same
+        if check and not same:
+            raise AssertionError(f"{label}: a row alone or the rows permuted "
+                                 f"differ from the batch of {ROWS}")
+    return out
 
 
 def drive(sel, cpo, label, fn, want, expect_kernel):
@@ -921,8 +1062,10 @@ def identity_ladders(cpo, ref, sel, obj, x) -> dict:
     """The ladder sets of the company identities, on ``x`` (n,): a
     16-quantile descent's first sweep (16 identical ladders over [min,
     max]), the distinct narrow ladders its descent step picks, the five
-    bracket kinds cycled over 16 (overlapping brackets), and the polished
-    first sweep (``polish_first_edges``: 16 distinct full-range ladders)."""
+    bracket kinds cycled over 16 (nested and disjoint brackets), 16
+    staggered brackets each overlapping its neighbours in part, and the
+    polished first sweep (``polish_first_edges``: 16 distinct full-range
+    ladders, every element inside all of them)."""
     e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
     e1 = e1.contiguous()
     ks = sel.ranks_from_quantiles(QS16, x.numel()).to(DEVICE)
@@ -934,6 +1077,8 @@ def identity_ladders(cpo, ref, sel, obj, x) -> dict:
             "narrow": ref.bin_edges(yl, yr, 128).contiguous(),
             "5 kinds cycled": edge_ladders(ref, [kinds[j % 5]
                                                  for j in range(16)], 128),
+            "staggered": edge_ladders(ref, [(-2.0 + 0.25 * j, -1.0 + 0.25 * j)
+                                            for j in range(16)], 128),
             "polished first sweep": polish_first_edges(sel, obj, x, ks)}
 
 
@@ -980,28 +1125,28 @@ def ladders_alone_equal_among_16(cpo, ref, sel, obj,
     """K3w at n = N_IDENT (1024 block partials) with dense weights: whether
     each of 16 ladders alone gives the same counts and masses, bit for bit,
     as its entry among the 16, and a permutation of the 16 the same as the
-    16 permuted: on the first sweep's 16 identical ladders and on the
-    distinct narrow ladders a descent step picks for 16 quantiles (raises
-    if not, with ``check``), and, reported only, on the five bracket kinds
-    cycled over 16 (overlapping ladders: an element inside several is
-    grouped per ladder in a round that depends on the ladders before it,
-    so their masses may follow their company)."""
+    16 permuted, on every ladder set of ``identity_ladders``: identical,
+    disjoint, nested, partly overlapping and fully overlapping ladders
+    (raises if not, with ``check``); with ``full_bracket`` (a first sweep
+    of identical ladders bins the one ladder) the same bits again."""
     x = torch.randn(N_IDENT, generator=gen(303), device=DEVICE)
     wd = dense_weights(N_IDENT, 304)
     cases = identity_ladders(cpo, ref, sel, obj, x)
-    del cases["polished first sweep"]
     perm = torch.randperm(16, generator=gen(305), device=DEVICE)
     out = {}
+    kw = k3_kw(cpo, True, cpo.wcp_histogram_multi)
     for label, e in cases.items():
         cnt, mass, _ = cpo.wcp_histogram_multi(x, wd, e)
-        same = True
+        # with full_bracket a first sweep of identical ladders bins one
+        cf, mf, _ = cpo.wcp_histogram_multi(x, wd, e, **kw)
+        same = torch.equal(cnt, cf) and same_bits(mass, mf)
         for j in range(16):
             c1, m1, _ = cpo.wcp_histogram(x, wd, e[j])
             same &= torch.equal(cnt[j], c1) and same_bits(mass[j], m1)
         cp, mp, _ = cpo.wcp_histogram_multi(x, wd, e[perm].contiguous())
         same &= torch.equal(cnt[perm], cp) and same_bits(mass[perm], mp)
         out[label] = same
-        if check and label != "5 kinds cycled" and not same:
+        if check and not same:
             raise AssertionError(f"K3w: a ladder alone or permuted differs "
                                  f"from its entry among 16 ({label}; 1024 "
                                  f"blocks, dense weights)")
@@ -1054,10 +1199,14 @@ def check_k3w(cpo, ref, sel, obj) -> dict:
             x, wi = x32.to(xdt), wi32.to(wdt)
             for label, ladder, nbins in ladders:
                 e = edge_ladders(ref, ladder, nbins)
-                got = cpo.wcp_histogram_multi(x, wi, e)[:2]
                 want = ref.wcp_histogram_multi_ref(x, wi, e,
                                                    want_sums=False)[:2]
-                chk.exact(got, want, f"n={n} {xdt} {wdt} {label}")
+                for full in (False, True):  # all ladders, or the one
+                    got = cpo.wcp_histogram_multi(
+                        x, wi, e, **k3_kw(cpo, full,
+                                          cpo.wcp_histogram_multi))[:2]
+                    chk.exact(got, want, f"n={n} {xdt} {wdt} {label} "
+                                         f"full={full}")
             if n == N_ODD:
                 for kind in kinds:  # K = 1 through the scalar view
                     e1 = edge_ladders(ref, [kind], 128)[0]
@@ -1169,7 +1318,8 @@ def block_sum_passes(launches: dict) -> int:
 def drive_only(sel, cpo, label, fn, check, expect_kernel):
     """Run one call with the launch counts read from zero; ``check(res)``
     raises unless the values are right.  Only ``expect_kernel`` may launch,
-    once per sweep or pass."""
+    once per sweep or pass, besides the row sums of the rows path and the
+    finalize (``row_sums``)."""
     cpo.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1181,10 +1331,11 @@ def drive_only(sel, cpo, label, fn, check, expect_kernel):
     if bool((res.status == sel.NOT_CONVERGED).any()):
         raise AssertionError(f"{label}: NOT_CONVERGED")
     moved = {k for k, v in launches.items() if v}
-    # a pass with f32 block partials sums them with sum_blocks
+    # a pass with f32 block partials sums them with sum_blocks, and so
+    # does each row sum
     block_sums = (launches[expect_kernel] if has_block_sums(expect_kernel)
-                  else 0)
-    if (moved - {"sum_blocks"} != {expect_kernel}
+                  else 0) + launches.get("row_sums", 0)
+    if (moved - {"sum_blocks", "row_sums"} != {expect_kernel}
             or launches["sum_blocks"] != block_sums):
         raise AssertionError(f"{label}: launched {launches}, expected only "
                              f"{expect_kernel} (and sum_blocks as often on "
@@ -1368,8 +1519,10 @@ def weighted_timings(sel, cpo, ref, obj) -> dict:
     for label, e, c in (("k3w_first", e16, cnt16), ("k3w_narrow", e2, cnt2)):
         nbytes, ops = k3_work(x, e, c)  # one read of x, compares, searches
         distinct = len({r.numpy().tobytes() for r in e.cpu()})
+        kw = k3_kw(cpo, label == "k3w_first", cpo.wcp_histogram_multi)
         out[label] = dict(
-            ms=cuda_ms(lambda: cpo.wcp_histogram_multi(x, wd, e), reps=20),
+            ms=cuda_ms(lambda: cpo.wcp_histogram_multi(x, wd, e, **kw),
+                       reps=20),
             plain_ms=cuda_ms(lambda: ref.wcp_histogram_multi_ref(
                 x, wd, e, want_sums=False), reps=1, rounds=3),
             # + the weights read once, the mass output, and two selected
@@ -1377,6 +1530,10 @@ def weighted_timings(sel, cpo, ref, obj) -> dict:
             bound=bound(nbytes + N_BIG * 4 + c.numel() * 4,
                         ops + 2 * N_BIG * distinct),
             distinct_ladders=distinct)
+    # K3w's kernel on all 16 of the first sweep's ladders (the main path
+    # bins the one ladder there)
+    out["k3w_first"]["all_ladders_ms"] = cuda_ms(
+        lambda: cpo.wcp_histogram_multi(x, wd, e16), reps=20)
     xs = torch.sort(x).values
     y16 = xs[ks.long() - 1]
     out["k4w"] = dict(
@@ -1749,7 +1906,8 @@ def warm_path(sel, cpo, stream) -> dict:
     torch.cuda.synchronize()
     launched = {kk: v for kk, v in cpo.LAUNCHES.items() if v}
     if not (int(warm.iters) == 1 and int(warm.status) == sel.EXACT_HIT
-            and launched == {"cp_histogram_batched": 1}
+            and launched == {"cp_histogram_batched": 1, "row_sums": 1,
+                             "sum_blocks": 1}
             and float(warm.value) == float(cold.value)
             == float(torch.sort(x).values[(N_BIG + 1) // 2 - 1])):
         raise AssertionError(f"median with an unchanged prior: iters "
@@ -2198,12 +2356,17 @@ def timings_multi(sel, cpo, ref, obj) -> dict:
     e2 = ref.bin_edges(yl, yr, 128).contiguous()
     cnt2, _ = cpo.cp_histogram_multi(x, e2)
     for label, e, cnt in (("k3_first", e1, cnt1), ("k3_narrow", e2, cnt2)):
+        kw = k3_kw(cpo, label == "k3_first")  # the main path's design
         out[label] = dict(
-            ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, e), reps=20),
+            ms=cuda_ms(lambda: cpo.cp_histogram_multi(x, e, **kw), reps=20),
             plain_ms=cuda_ms(lambda: ref.cp_histogram_multi_ref(
                 x, e, want_sums=False), reps=1, rounds=3),
             bound=bound(*k3_work(x, e, cnt)),
             distinct_ladders=len({r.numpy().tobytes() for r in e.cpu()}))
+    # K3's own kernel (the buckets) on the first sweep's ladders; the main
+    # path runs K1's lane kernel on the one ladder there
+    out["k3_first"]["general_kernel_ms"] = cuda_ms(
+        lambda: cpo.cp_histogram_multi(x, e1), reps=20)
     # K4 at 16 pivots on the data's quantiles, and at K in KS_SWEEP
     xs = torch.sort(x).values
     y = xs[ks.long() - 1]
@@ -2492,6 +2655,70 @@ def hist_multi_sums_build(_build, cpo) -> dict:
     return out
 
 
+def hist_multi_build(_build, cpo) -> dict:
+    """K3's and K3w's build report (``hist_multi.cu``): registers and
+    spills of each instance (ptxas; only when this process built the
+    library), and for the f32 instances at 16 ladders of 129 edges the
+    shared bytes a block asks for (the kernel's layout, which must equal
+    ``hist_multi_smem``), its warps and the blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; a tree without
+    these entries reports the ptxas lines only)."""
+    out = {"ptxas": ptxas_report(_build.build_log.get("hist_multi", ""),
+                                 hist_multi_instance)}
+    lib = _build.load("hist_multi")
+    if not hasattr(lib, "hist_multi_blocks_per_sm"):
+        return out
+    occ = lib.hist_multi_blocks_per_sm
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    smem = lib.hist_multi_smem
+    smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_longlong
+    for rows, name, inst in ((0, "k3", "hist_multi_kernel f32/-/16/-"),
+                             (1, "k3w", "whist_multi_kernel f32/f32/16/0")):
+        warps = cpo.LANE_WARPS if rows == 0 else cpo.hist_multi_layout(
+            16, 129, 1)[1]
+        nbytes = int(smem(16, 129, warps, rows))
+        if nbytes != cpo.hist_multi_smem(16, warps, 129, rows):
+            raise AssertionError(f"{name}: the kernel's layout takes {nbytes} "
+                                 f"shared bytes, hist_multi_smem says "
+                                 f"{cpo.hist_multi_smem(16, warps, 129, rows)}")
+        blocks = ctypes.c_int(0)
+        rc = occ(rows, 129, warps, ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"occupancy query of {name} failed: CUDA "
+                               f"error {rc}")
+        out[name] = {**out["ptxas"].get(inst, {}), "smem_bytes": nbytes,
+                     "ladders_a_block": 16, "warps": warps,
+                     "blocks_per_sm": blocks.value}
+    return out
+
+
+def row_sums_times(cpo, ref) -> dict:
+    """``row_sums`` on the rows batch (64, 2^20) f32 with dense f32 weights,
+    in the finalize's mode (w over x <= a per-row value) and as the
+    counting mean's sum of x: ms, the plain version's, one
+    ``torch.sum(..., dim=1)`` of the same terms (the library call whose
+    order follows the batch), and the bytes bound."""
+    x = torch.randn((ROWS, N_ROW), generator=gen(131), device=DEVICE)
+    wd = dense_weights((ROWS, N_ROW), 132)
+    c = x[:, 12345].contiguous()
+    out = {}
+    for label, mode, lib in (
+            ("le", "le", lambda: torch.sum(torch.where(x <= c[:, None], wd,
+                                                       0.0), dim=1)),
+            ("x", None, lambda: torch.sum(x, dim=1))):
+        nbytes = x.numel() * 4 * (1 if mode is None else 2) + ROWS * 8
+        out[label] = dict(
+            ms=cuda_ms(lambda: row_sums_call(cpo, x, wd, c, mode), reps=20),
+            plain_ms=cuda_ms(lambda: row_sums_plain(ref, x, wd, c, mode,
+                                                    torch.float32), reps=3),
+            library_ms=cuda_ms(lib, reps=20),
+            bound=bound(nbytes, x.numel()))
+    return out
+
+
 def lane_build(report: dict, leg: str, instance: str) -> dict:
     """A lane-private leg's registers, spills, shared bytes and blocks
     per SM from ``hist_batched_build``'s report."""
@@ -2626,8 +2853,9 @@ def k1w_outputs(cpo, ref) -> dict:
 
 def k3_sweep_times(sel, cpo, ref) -> dict:
     """K3, K3w, K3s and K3ws through their wrappers at 2^27 f32, K = 16
-    (dense f32 w): the first sweep's 16 identical ladders and the distinct
-    narrow ones its descent step picks (ms)."""
+    (dense f32 w): the first sweep's 16 identical ladders (K3 with the
+    main path's ``full_bracket``) and the distinct narrow ones its descent
+    step picks (ms)."""
     x = torch.randn(N_BIG, generator=gen(151), device=DEVICE)
     wd = dense_weights(N_BIG, 152)
     ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
@@ -2639,9 +2867,11 @@ def k3_sweep_times(sel, cpo, ref) -> dict:
     e2 = ref.bin_edges(yl, yr, 128).contiguous()
     out = {}
     for sweep, e in (("first", e1), ("narrow", e2)):
+        kw = k3_kw(cpo, sweep == "first")  # the main path's designs
+        kww = k3_kw(cpo, sweep == "first", cpo.wcp_histogram_multi)
         for leg, call in (
-                ("k3", lambda: cpo.cp_histogram_multi(x, e)),
-                ("k3w", lambda: cpo.wcp_histogram_multi(x, wd, e)),
+                ("k3", lambda: cpo.cp_histogram_multi(x, e, **kw)),
+                ("k3w", lambda: cpo.wcp_histogram_multi(x, wd, e, **kww)),
                 ("k3s", lambda: cpo.cp_histogram_multi(x, e,
                                                        want_sums=True)),
                 ("k3ws", lambda: cpo.wcp_histogram_multi(x, wd, e,
@@ -2678,13 +2908,15 @@ def compare_times(sel, cpo, obj, ref, _build) -> dict:
     four shapes of its launches; K1 and K1w at the first and narrow
     sweeps (``hist_rows_times``), the row histogram's main path end to end
     (``rows_path_times``), hist_batched's build report, whether a K1w row
-    alone and a K3w ladder alone get the same bits as in company; and the
-    outputs of K4/K4w and K1w for ``compare_outputs``; K3, K3w, K3s and
+    alone and a K3w ladder alone get the same bits as in company, whether
+    a rows-path answer alone equals its entry in the batch, hist_multi's
+    build report; and the outputs of K4/K4w and K1w for
+    ``compare_outputs``; K3, K3w, K3s and
     K3ws at the first and narrow sweeps (``k3_sweep_times``), K3s and K3ws
     on the polished first sweep, the 16-quantile and 16 weighted-quantile
     paths 'binned' and polished with sweeps, loop and finalize
     (``polish_multi_times``), whether a K3s or K3ws ladder alone gets the
-    same bits as among 16 (four ladder sets), hist_multi_sums's build
+    same bits as among 16 (five ladder sets), hist_multi_sums's build
     report, and K3s's and K3ws's outputs."""
     parts = {str(list(sh)): torch.rand(sh, generator=gen(211), device=DEVICE)
              for sh in (sum_blocks_shapes(cpo)[i] for i in (1, 5, 8, 9))}
@@ -2698,6 +2930,9 @@ def compare_times(sel, cpo, obj, ref, _build) -> dict:
                cpo, ref, check=False),
            "k3w_ladder_alone_equals_among_16": ladders_alone_equal_among_16(
                cpo, ref, sel, obj, check=False),
+           "rows_answers_alone_equal_batch": rows_answers_alone_equal_batch(
+               sel, check=False),
+           "hist_multi_build": hist_multi_build(_build, cpo),
            "k3_sums_alone_equals_among_16":
                sums_ladders_alone_equal_among_16(cpo, ref, sel, obj,
                                                  check=False),
@@ -2911,6 +3146,97 @@ def compare(other: Path, smi: str) -> None:
     print(line, flush=True)
 
 
+# the phases of hist_multi.cu's kernels that a build with
+# -DHIST_MULTI_PROBE times with clock64 (summed over threads)
+PROBE_PHASES = ("load", "buckets", "ends", "slots", "inside", "flush", "-",
+                "-")
+
+
+def hist_multi_instance(mangled: str):
+    """The mangled name of a ``hist_multi.cu`` kernel -> "name T/W/G/leg"
+    (W "-" and leg "-" on the counting kernel), or None for another
+    function."""
+    m = re.search(r"\d+(whist_multi_kernel|hist_multi_kernel)"
+                  r"I(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\w*?_)?"
+                  r"Li(\d+)E(?:Li(\d)E)?E", mangled)
+    if not m:
+        return None
+    name, t, w, g, leg = m.groups()
+    w = "-" if w is None else (t if w.startswith("S") else w)
+    w = _TYPES.get(w, w)
+    return f"{name} {_TYPES[t]}/{w}/{g}/{leg or '-'}"
+
+
+def hist_multi_probe(src: Path, sel, cpo, ref, _build) -> dict:
+    """Build ``src`` (a copy of ``hist_multi.cu`` with clock64 phase marks)
+    with -DHIST_MULTI_PROBE, run K3 and K3w through it at 2^27 f32, K = 16
+    (dense f32 w) on the first sweep's identical ladders and the narrow
+    ones its descent step picks, and return each run's clock64 cycles per
+    phase summed over threads (and their shares), beside the kernels'
+    times in the normal build and the normal build's ptxas report."""
+    out_dir = ROOT / "build" / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"{src.stem}_probe.so"
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                          "-DHIST_MULTI_PROBE",
+                          "-o", str(so), str(src)], capture_output=True,
+                         text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"probe build failed:\n{res.stdout}{res.stderr}")
+    _build.build_all()
+    report = ptxas_report(_build.build_log.get("hist_multi", ""),
+                          hist_multi_instance)
+    probe_report = ptxas_report(res.stdout + res.stderr, hist_multi_instance)
+    x = torch.randn(N_BIG, generator=gen(151), device=DEVICE)
+    wd = dense_weights(N_BIG, 152)
+    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
+    e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
+    e1 = e1.contiguous()
+    cum = torch.cumsum(cpo.cp_histogram_multi(x, e1)[0][:, :-1], dim=-1,
+                       dtype=torch.int32)
+    yl, yr, *_ = sel.binned_descent_step(cum, e1, e1[:, 0], e1[:, -1], ks)
+    e2 = ref.bin_edges(yl, yr, 128).contiguous()
+    calls = {}
+    for sweep, e in (("first", e1), ("narrow", e2)):
+        calls[f"k3_{sweep}"] = (lambda e=e: cpo.cp_histogram_multi(x, e))
+        calls[f"k3w_{sweep}"] = (
+            lambda e=e: cpo.wcp_histogram_multi(x, wd, e))
+    out = {"ptxas": report, "probe_ptxas": probe_report, "runs": {}}
+    for key, call in calls.items():
+        out["runs"][key] = {"ms": cuda_ms(call, reps=20)}
+    lib = ctypes.CDLL(str(so))
+    read = lib.hist_multi_probe_read
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    read.restype = ctypes.c_int
+    normal = _build._libs["hist_multi"]
+    _build._libs["hist_multi"] = lib
+    cpo._fns.clear()
+    try:
+        buf = (ctypes.c_ulonglong * 8)()
+        for key, call in calls.items():
+            call()
+            rc = read(buf, 1)
+            if rc != 0:
+                raise RuntimeError(f"probe read failed: CUDA error {rc}")
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            probe_s = time.perf_counter() - t0
+            rc = read(buf, 1)
+            if rc != 0:
+                raise RuntimeError(f"probe read failed: CUDA error {rc}")
+            cyc = {p: int(buf[i]) for i, p in enumerate(PROBE_PHASES)
+                   if p != "-"}
+            tot = sum(cyc.values()) or 1
+            out["runs"][key].update(
+                probe_ms=probe_s * 1e3, cycles=cyc,
+                share={p: c / tot for p, c in cyc.items()})
+    finally:
+        _build._libs["hist_multi"] = normal
+        cpo._fns.clear()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--compare", type=Path, metavar="TREE",
@@ -2920,6 +3246,11 @@ def main() -> None:
                     help="time K3s/K3ws in both designs at widths "
                          "DESIGN_WIDTHS instead of running the checks; "
                          "writes chiprun_out/designs.json")
+    ap.add_argument("--probe", type=Path, metavar="CU",
+                    help="time hist_multi.cu's phases with clock64 in CU, a "
+                         "copy of it with phase marks (HIST_MULTI_PROBE), "
+                         "instead of running the checks; writes "
+                         "chiprun_out/probe.json")
     ap.add_argument("--times-of", type=Path, metavar="SRC",
                     help="print, as one JSON line, what --compare reads, "
                          "with the package under SRC")
@@ -2953,6 +3284,15 @@ def main() -> None:
         (out / "designs.json").write_text(line + "\n")
         print(line, flush=True)
         return
+    if args.probe:
+        line = json.dumps({"device": name, "smi": smi,
+                           **hist_multi_probe(args.probe, sel, cpo, ref,
+                                              _build)})
+        out = ROOT / "chiprun_out"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "probe.json").write_text(line + "\n")
+        print(line, flush=True)
+        return
     if args.times_of:
         _build.build_all()
         print(json.dumps(compare_times(sel, cpo, obj, ref, _build)),
@@ -2969,12 +3309,16 @@ def main() -> None:
 
     t0 = time.perf_counter()
     sb_check = check_sum_blocks(cpo)
+    rs_check = check_row_sums(cpo, ref)
     k1_check = check_k1(cpo, ref)
     k2_check = check_k2(cpo, ref)
     k3_check = check_k3(cpo, ref)
     k4_check = check_k4(cpo, ref)
     w_checks = [check_k1w(cpo, ref), check_k2w(cpo, ref),
                 check_k3w(cpo, ref, sel, obj), check_k4w(cpo, ref)]
+    rows_ident = rows_answers_alone_equal_batch(sel)
+    log(f"rows path at (64, 2^20): each row alone and the 64 permuted == "
+        f"the batch in every field, bit for bit: {json.dumps(rows_ident)}")
     log(f"kernel checks took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2986,6 +3330,7 @@ def main() -> None:
         f"{ {k: v for k, v in weighted.items() if v} }")
     for key, count in (("cp_histogram_batched", launches),
                        ("cp_partials_batched", launches),
+                       ("row_sums", launches),
                        ("cp_histogram_multi", multi),
                        ("cp_partials_multi", multi),
                        ("wcp_histogram_batched", weighted),
@@ -3013,7 +3358,11 @@ def main() -> None:
     tk1 = {"k1": hist_rows_times(cpo, ref, False),
            "k1w": hist_rows_times(cpo, ref, True)}
     hbb = hist_batched_build(_build, cpo)
+    hmb = hist_multi_build(_build, cpo)
+    trs = row_sums_times(cpo, ref)
     log(f"timings took {time.perf_counter() - t0:.1f} s")
+    log("K3/K3w build: " + json.dumps(hmb))
+    log("row_sums (ms, " + name + ", " + smi + "): " + json.dumps(trs))
     log("K1/K1w sweeps (ms, " + name + ", " + smi + "): " + json.dumps(tk1))
     log("K1/K1w build: " + json.dumps(hbb))
     log("timings (ms, " + name + ", " + smi + "): " + json.dumps(tm))
@@ -3100,6 +3449,17 @@ def main() -> None:
          "bound_by": tmm["k3_first"]["bound"][1],
          "library_ms": None,
          "shape": "(2^27,) f32, K=16 identical first-sweep ladders, 128 bins",
+         "design": "first sweep of identical ladders (full_bracket): K1's "
+                   "lane_count_kernel (hist_batched.cu) on the one ladder; "
+                   "else the block's distinct bracket ends sorted once, an "
+                   "element's bucket by a branch-free search over them "
+                   "(lane-private 16-bit bucket counters give every "
+                   "ladder's end slots), in-bracket slots guessed and "
+                   "decided by the realized edges, integer atomics",
+         "first_sweep_design": "hist_batched.cu lane_count_kernel",
+         "first_sweep_general_kernel_ms": tmm["k3_first"][
+             "general_kernel_ms"],
+         **hmb.get("k3", {}),
          "narrow_sweep_ms": tmm["k3_narrow"]["ms"],
          "narrow_sweep_plain_ms": tmm["k3_narrow"]["plain_ms"],
          "narrow_sweep_bound_ms": tmm["k3_narrow"]["bound"][0],
@@ -3177,7 +3537,17 @@ def main() -> None:
                        sweeps_ms=tk1["k1w"],
                        **lane_build(hbb, "k1w", "lane_rows_kernel f32/f32/1"))
         if key == "wcp_histogram_multi":
-            row.update(narrow_sweep_ms=tw["k3w_narrow"]["ms"],
+            row.update(design="end slots in per-thread registers (two "
+                              "compares, two predicated adds per element and "
+                              "distinct ladder), counts from lane-private "
+                              "bucket counters over the block's sorted "
+                              "bracket ends, in-bracket steps in rounds that "
+                              "take a ladder whole (its lanes grouped by "
+                              "slot, summed in lane order), slots guessed "
+                              "and decided by the realized edges; warps from "
+                              "the width alone",
+                       **hmb.get("k3w", {}),
+                       narrow_sweep_ms=tw["k3w_narrow"]["ms"],
                        narrow_sweep_plain_ms=tw["k3w_narrow"]["plain_ms"],
                        narrow_sweep_bound_ms=tw["k3w_narrow"]["bound"][0],
                        narrow_sweep_distinct_ladders=tw["k3w_narrow"][
@@ -3263,6 +3633,29 @@ def main() -> None:
          "rows_bound_ms": tsb["rows_bound"][0],
          "nearest_library": "torch.sum over the block axis, which is also "
                             "the plain version (so library_ms is plain_ms)"})
+    kernels.append(
+        {"name": "row_sums (per-row sums of the rows path: total mass, "
+                 "means, the finalize's masses)",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sum_blocks.cu",
+         "replaces": "src/repro/core/objective.py:304",
+         "replaces_also": ["src/repro/core/objective.py:335",
+                           "src/repro/core/objective.py:340",
+                           "src/repro/core/selection.py:860",
+                           "src/repro/core/selection.py:861",
+                           "src/repro/core/selection.py:957"],
+         "launches": launches["row_sums"], **rs_check,
+         "ms": trs["le"]["ms"], "plain_ms": trs["le"]["plain_ms"],
+         "bound_ms": trs["le"]["bound"][0], "bound_by": trs["le"]["bound"][1],
+         "library_ms": trs["le"]["library_ms"],
+         "shape": "(64, 2^20) f32 x and dense f32 w, mass at or below a "
+                  "per-row value",
+         "sum_of_x_ms": trs["x"]["ms"],
+         "sum_of_x_library_ms": trs["x"]["library_ms"],
+         "sum_of_x_bound_ms": trs["x"]["bound"][0],
+         "rows_alone_equal_batch": rows_ident,
+         "nearest_library": "torch.sum(..., dim=1) of the same terms, whose "
+                            "order follows the batch"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -116,20 +116,21 @@ def _weight_accum_dtype(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
     return _waccum_dtype(x, w)
 
 
-def compiled_mean(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
-    """Mean of ``x`` (over ``dim``, or all of it) in ``x``'s dtype, formed
-    as the reference's compiled code forms it: the sum in the accumulation
-    dtype times the reciprocal of ``n`` rounded to that dtype (XLA turns
-    the division by the constant ``n`` into that product).  It seeds the
-    analytic cuts, so the polish's first cut matches the reference's bit
-    for bit wherever the sum is exact."""
+def compiled_mean(x: torch.Tensor, rows: bool = False) -> torch.Tensor:
+    """Mean of ``x`` (of each row of a (B, n) ``x`` with ``rows``, else of
+    all of it) in ``x``'s dtype, formed as the reference's compiled code
+    forms it: the sum in the accumulation dtype times the reciprocal of
+    ``n`` rounded to that dtype (XLA turns the division by the constant
+    ``n`` into that product).  It seeds the analytic cuts, so the polish's
+    first cut matches the reference's bit for bit wherever the sum is
+    exact.  A row's sum does not depend on the other rows
+    (``ops.row_sums``)."""
     acc = _accum_dtype(x)
-    n = x.numel() if dim is None else x.shape[dim]
+    n = x.shape[1] if rows else x.numel()
     # the reciprocal rounded to the accumulation dtype on the host: a
     # Python scalar operand, so nothing is copied to the device
     rcp = float(torch.ones((), dtype=acc) / torch.tensor(float(n), dtype=acc))
-    total = torch.sum(x, dtype=acc) if dim is None else torch.sum(
-        x, dim=dim, dtype=acc)
+    total = ops.row_sums(x, dtype=acc) if rows else torch.sum(x, dtype=acc)
     return (total * rcp).to(x.dtype)
 
 
@@ -193,7 +194,8 @@ class RowsEvaluator:
             self.w = torch.as_tensor(weights, device=x.device).broadcast_to(
                 x.shape).contiguous()
             dt = _weight_accum_dtype(x, self.w)
-            self.W = torch.sum(self.w, dim=1, dtype=dt)
+            # each row's total alone: its bits do not follow the batch
+            self.W = ops.row_sums(self.x, self.w, dtype=dt)
             self.k = torch.minimum(torch.as_tensor(k, dtype=dt,
                                                    device=x.device), self.W
                                    ).broadcast_to((x.shape[0],))
@@ -225,12 +227,13 @@ class RowsEvaluator:
         x = self.x
         if self.weighted:
             # weighted mean: the analytic seed f-values are mass-weighted
-            wmean = torch.sum(self.w * x, dim=1, dtype=self.W.dtype) \
+            wmean = ops.row_sums(x, self.w, mode="moment",
+                                 dtype=self.W.dtype) \
                 / torch.clamp(self.W, min=1e-30)
             return (torch.amin(x, dim=1), torch.amax(x, dim=1),
                     wmean.to(x.dtype))
         return (torch.amin(x, dim=1), torch.amax(x, dim=1),
-                compiled_mean(x, dim=1))
+                compiled_mean(x, rows=True))
 
 
 class SharedEvaluator:
@@ -270,12 +273,15 @@ class SharedEvaluator:
                                 self.n, self.k)
 
     def histogram(self, edges, need_msum=False, full_bracket=False):
-        # full_bracket is the row kernel's design hint; K3 has one design
+        # full_bracket lets a first sweep of identical ladders bin the one
+        # ladder on the card (a ladder's bits do not follow its company)
         if self.weighted:
             return ops.fused_weighted_histogram_multi(
-                self.x, self.w, edges, want_sums=need_msum)
+                self.x, self.w, edges, want_sums=need_msum,
+                full_bracket=full_bracket)
         cnt, bsum = ops.fused_histogram_multi(self.x, edges,
-                                              want_sums=need_msum)
+                                              want_sums=need_msum,
+                                              full_bracket=full_bracket)
         return cnt, cnt, bsum  # counting measure: the counts ARE the mass
 
     def init_stats(self):

@@ -726,9 +726,9 @@ def _compact_interval(x, yL, yR, cap, w=None):
         return z, None, cL, n_in, vnext, m_le_v
     zero = torch.zeros((), dtype=w.dtype, device=w.device)
     (z, zw), n_in = rank_compact(mask_in, cap, [(x, big), (w, zero)])
-    cLw = torch.sum(torch.where(x <= lo, w, zero), dim=1, dtype=w.dtype)
-    w_le_v = torch.sum(torch.where(x <= vnext[:, None], w, zero), dim=1,
-                       dtype=w.dtype)
+    # each row's masses alone: their bits do not follow the batch
+    cLw = ops.row_sums(x, w, yL, "le", dtype=w.dtype)
+    w_le_v = ops.row_sums(x, w, vnext, "le", dtype=w.dtype)
     return z, zw, cLw, n_in, vnext, w_le_v
 
 
@@ -814,12 +814,10 @@ def _finalize_rows(x, kk, s: BatchState, cap, xmin, xmax,
     z, zw, cLm, n_in, vnext, m_le_v = _compact_interval(x, s.yL, s.yR, cap,
                                                         w)
     zs, zws = _sort_buffers(z, zw)
-    below_max = x < xmax[:, None]
     if w is None:
-        m_lt_max = torch.sum(below_max, dim=1, dtype=torch.int32)
+        m_lt_max = torch.sum(x < xmax[:, None], dim=1, dtype=torch.int32)
     else:
-        m_lt_max = torch.sum(torch.where(below_max, w, 0), dim=1,
-                             dtype=w.dtype)
+        m_lt_max = ops.row_sums(x, w, xmax, "lt", dtype=w.dtype)
     return _assemble_answers(kk, s, cap, zs, zws, cLm, n_in, vnext, m_le_v,
                              m_lt_max, xmin, xmax)
 

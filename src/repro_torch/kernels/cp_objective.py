@@ -76,7 +76,7 @@ LAUNCHES = {"cp_histogram_batched": 0, "cp_partials_batched": 0,
             "cp_histogram_batched_sums": 0, "cp_histogram_multi_sums": 0,
             "cp_histogram_sums": 0, "wcp_histogram_batched_sums": 0,
             "wcp_histogram_multi_sums": 0, "wcp_histogram_sums": 0,
-            "sum_blocks": 0}
+            "sum_blocks": 0, "row_sums": 0}
 
 # K1: its grid aims to fill the card with the blocks an SM holds (integer
 # atomics make the counts independent of the block count, so it may follow
@@ -112,6 +112,9 @@ MAX_ROWS = 65535  # grid.y limit
 # block may hold
 HIST_MULTI_GROUP = 16
 HIST_OPTIN_SMEM = 227 * 1024
+# K3 and K3w: elements a thread bins per batch (``kUnroll`` in
+# csrc/hist_multi.cu; K3w stages a batch's row values per warp)
+HIST_MULTI_UNROLL = 4
 # K4: at most 16 pivots share a block (four register accumulators each,
 # six on the weighted leg)
 FG_MULTI_GROUP = 16
@@ -153,6 +156,8 @@ _SIGNATURES = {
     "wshist_multi_sums": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32,
                           _P],
     "sum_blocks": [_P, _P, _I64, _I32, _I64, _P],
+    "row_sums": [_P, _P, _I64, _I64, _I32, _P],
+    "wrow_sums": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P],
 }
 _fns: dict = {}
 
@@ -163,14 +168,15 @@ def reset_launches() -> None:
 
 
 def _kernel_fn(lib_name: str, dtype: torch.dtype, wdtype=None,
-               sums: bool = False, lane: bool = False):
+               sums: bool = False, lane: bool = False, entry: str = ""):
     """The C entry of ``csrc/<lib_name>.cu`` for ``x`` of ``dtype`` — on
     the weighted leg (``wdtype``, the weights' dtype) the ``w``-prefixed
     entry for that pair of types, for a histogram's sums leg (``sums``)
     the ``s``-prefixed one, and for K1's lane-private design (``lane``)
-    the same entry prefixed ``lane_``."""
+    the same entry prefixed ``lane_``; ``entry`` names an entry other than
+    the library's own."""
     prefix = ("w" if wdtype is not None else "") + ("s" if sums else "") \
-        + lib_name
+        + (entry or lib_name)
     name = ("lane_" if lane else "") + f"{prefix}_{_KERNEL_DTYPES[dtype]}"
     if wdtype is not None:
         name += f"_{_KERNEL_DTYPES[wdtype]}"
@@ -263,6 +269,51 @@ def _sum_blocks(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# what row_sums adds up per element of a row with weights (``mode``): w
+# ("mass"), w*x ("moment"), w over x <= c ("le"), w over x < c ("lt")
+ROW_MODES = {"mass": 0, "moment": 1, "le": 2, "lt": 3}
+
+
+def row_sums(x: torch.Tensor, w=None, c=None, mode: str = "mass"):
+    """Per-row f32 sums over ``x`` (B, n) f32/bf16: of ``x`` itself
+    (``w=None``), or of the weights ``w`` (B, n) f32/bf16 as ``mode``
+    (:data:`ROW_MODES`) says, ``c`` (B,) the per-row bound of ``"le"`` /
+    ``"lt"`` (compared in f32).  Each row is summed in an order set
+    by ``n`` alone: per-block partials of ``fg_blocks(n)`` blocks
+    (``csrc/sum_blocks.cu``, ``row_partials_kernel``), then
+    :func:`_sum_blocks`, so a row gets the same bits alone as in any
+    batch.  Not a TPU kernel: it takes the place of the reference's
+    ``jnp.sum(..., axis=1)`` on the rows path.  Returns (B,) f32."""
+    _check_data(x)
+    if w is not None:
+        _check_weights(w, x)
+    rows, n = x.shape
+    if w is not None and mode not in ROW_MODES:
+        raise ValueError(f"unknown row_sums mode {mode!r}")
+    if w is not None and mode in ("le", "lt"):
+        c = c.to(torch.float32).contiguous()
+        _check_side(c, x, (rows,), "c")
+    else:
+        c = None
+    nblk = fg_blocks(n)
+    part = torch.empty((rows, nblk, 1), dtype=torch.float32, device=x.device)
+    if rows > 0:
+        fn = _kernel_fn("sum_blocks", x.dtype, None if w is None else w.dtype,
+                        entry="row_sums")
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if w is None:
+                rc = fn(x.data_ptr(), part.data_ptr(), rows, n, nblk, stream)
+            else:
+                rc = fn(x.data_ptr(), w.data_ptr(),
+                        None if c is None else c.data_ptr(),
+                        part.data_ptr(), rows, n, nblk, ROW_MODES[mode],
+                        stream)
+        _raise_on(rc, "sum_blocks")
+        LAUNCHES["row_sums"] += 1
+    return _sum_blocks(part).view(rows)
+
+
 def lane_hist_smem(nedges: int, nrows: int,
                    warps: int = LANE_WARPS) -> int:
     """Shared bytes of a lane-private block (``LaneLayout`` in
@@ -329,6 +380,18 @@ def cp_histogram_batched(x: torch.Tensor, edges: torch.Tensor, *,
         cnt, part = _hist_rows(x, None, edges, True,
                                "cp_histogram_batched_sums", full_bracket)
         return cnt, part[:, 0]
+    cnt = _count_rows(x, edges, full_bracket)
+    if cnt.shape[0] > 0:
+        LAUNCHES["cp_histogram_batched"] += 1
+    return cnt, None
+
+
+def _count_rows(x: torch.Tensor, edges: torch.Tensor,
+                full_bracket: bool) -> torch.Tensor:
+    """Launch K1's counting leg on ``x`` (B, n) and ``edges`` (B, nbins+1)
+    in the design :func:`hist_rows_layout` picks (no launch for B = 0);
+    returns the int32 counts (B, nbins + 2).  The caller counts the
+    launch."""
     _check_data(x)
     rows, n = x.shape
     nedges = edges.shape[-1] if edges.dim() == 2 else 0
@@ -343,7 +406,7 @@ def cp_histogram_batched(x: torch.Tensor, edges: torch.Tensor, *,
                          f"memory; a block holds at most {HIST_OPTIN_SMEM}")
     cnt = torch.zeros((rows, nedges + 1), dtype=torch.int32, device=x.device)
     if rows == 0:
-        return cnt, None
+        return cnt
     fn = _kernel_fn("hist_batched", x.dtype, lane=lane)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
@@ -352,8 +415,7 @@ def cp_histogram_batched(x: torch.Tensor, edges: torch.Tensor, *,
                 nedges, hist_blocks_per_row(rows, n, sms,
                                             blocks_per_sm(smem)), stream)
     _raise_on(rc, "hist_batched")
-    LAUNCHES["cp_histogram_batched"] += 1
-    return cnt, None
+    return cnt
 
 
 def _fg_batched(x: torch.Tensor, w, y: torch.Tensor, key: str):
@@ -393,28 +455,66 @@ def cp_partials_batched(x: torch.Tensor, y: torch.Tensor):
     return _fg_batched(x, None, y, "cp_partials_batched")
 
 
+def hist_multi_smem(group: int, warps: int, nedges: int, nrows: int) -> int:
+    """Dynamic shared bytes of a ``csrc/hist_multi.cu`` block (``Layout``)
+    of ``group`` ladders of ``nedges`` edges, ``warps`` warps and ``nrows``
+    f32 rows per slot (0: K3; 1: K3w, K3s; 2: K3ws): per ladder its edges,
+    int counts, guess and end ranks; the sorted bracket ends, and per
+    bucket (2 * group + 2) three ladder masks and a total; per warp the
+    lanes' 16-bit bucket counters (group + 1 words of 32 lanes), ``nrows``
+    f32 rows per ladder and slot, and a stage of 32 values per row and
+    step of a batch (``HIST_MULTI_UNROLL``)."""
+    nslots, nbuckets = nedges + 1, 2 * group + 2
+    return 4 * (group * (nedges + nslots) + 2 * group + 4 * nbuckets
+                + 4 * group + warps * (group + 1) * 32
+                + warps * group * nslots * nrows
+                + warps * 32 * nrows * HIST_MULTI_UNROLL)
+
+
 def hist_multi_group(k: int, nedges: int) -> int:
-    """Ladders per block of K3: the smallest power of two that covers ``k``
-    up to ``HIST_MULTI_GROUP``, halved while the group's edges and
-    histograms overflow ``HIST_MAX_SMEM`` (at least one)."""
+    """Ladders per block of K3 (``HIST_THREADS`` threads): the smallest
+    power of two that covers ``k`` up to ``HIST_MULTI_GROUP``, halved while
+    the block overflows ``HIST_MAX_SMEM`` (at least one)."""
     group = 1
     while group < min(k, HIST_MULTI_GROUP):
         group *= 2
-    while group > 1 and group * (2 * nedges + 1) * 4 > HIST_MAX_SMEM:
+    while group > 1 and hist_multi_smem(group, LANE_WARPS, nedges, 0) \
+            > HIST_MAX_SMEM:
         group //= 2
     return group
 
 
-def _hist_multi(x: torch.Tensor, edges: torch.Tensor, key: str):
-    """Launch K3 on ``x`` (n,) and ``edges`` (K, nbins+1); counts one
-    launch under ``LAUNCHES[key]``."""
+def one_ladder(edges: torch.Tensor, full_bracket: bool) -> bool:
+    """Whether a sweep whose brackets hold every element (``full_bracket``)
+    bins one ladder: K = 1, or every ladder of ``edges`` (K, nbins+1) is
+    the first (the first sweep of a multi-k solve without a prior; one
+    device-to-host read).  Such a sweep bins the one ladder and copies its
+    outputs to the K rows: K3's counts are exact in any design, and a
+    ladder's K3w masses are the same bits alone as among any company, so
+    the copies are what the K ladders would get."""
+    return (full_bracket and edges.shape[0] > 0
+            and (edges.shape[0] == 1
+                 or bool(torch.equal(edges, edges[:1].expand_as(edges)))))
+
+
+def _hist_multi(x: torch.Tensor, edges: torch.Tensor, key: str,
+                full_bracket: bool = False):
+    """Launch K3 on ``x`` (n,) and ``edges`` (K, nbins+1) (on a first sweep
+    of one ladder, :func:`one_ladder`, K1's lane-private kernel on it where
+    K1 takes its lane design at this width); counts one launch under
+    ``LAUNCHES[key]``."""
     _check_data(x, shared=True)
     if edges.dim() != 2 or edges.shape[1] < 1:
         raise ValueError(f"edges must be (K, nbins + 1), got "
                          f"{tuple(edges.shape)}")
     k, nedges = edges.shape
     _check_side(edges, x, (k, nedges), "edges")
-    smem = (2 * nedges + 1) * 4
+    if (hist_rows_layout(nedges, 0, x.shape[0], True) == "lane"
+            and one_ladder(edges, full_bracket)):
+        one = _count_rows(x.view(1, -1), edges[:1], True)
+        LAUNCHES[key] += 1
+        return one.expand(k, -1).contiguous()
+    smem = hist_multi_smem(1, LANE_WARPS, nedges, 0)
     if smem > HIST_OPTIN_SMEM:
         raise ValueError(f"{nedges - 1} bins need {smem} bytes of shared "
                          f"memory per ladder; a block holds at most "
@@ -437,17 +537,19 @@ def _hist_multi(x: torch.Tensor, edges: torch.Tensor, key: str):
 
 
 def cp_histogram_multi(x: torch.Tensor, edges: torch.Tensor, *,
-                       want_sums: bool = False):
+                       want_sums: bool = False, full_bracket: bool = False):
     """K3: slot counts of one shared ``x`` (n,) f32/bf16 against K realized
     f32 ladders ``edges`` (K, nbins+1).  Returns ``(cnt, bsum)`` with
     ``cnt`` int32 (K, nbins + 2), slot layout as
     ``ref.searchsorted_slots``; ``bsum`` is ``None``, or with
-    ``want_sums`` (the K3s leg) the f32 sums of ``x`` per slot."""
+    ``want_sums`` (the K3s leg) the f32 sums of ``x`` per slot.
+    ``full_bracket`` says that every bracket holds every element (it may
+    pick K3's design, :func:`one_ladder`; the counts are the same)."""
     if want_sums:
         cnt, part = _whist_multi(x, None, edges, "cp_histogram_multi_sums",
                                  True)
         return cnt, part[:, 0]
-    return _hist_multi(x, edges, "cp_histogram_multi"), None
+    return _hist_multi(x, edges, "cp_histogram_multi", full_bracket), None
 
 
 def cp_histogram(x: torch.Tensor, edges: torch.Tensor, *,
@@ -525,10 +627,11 @@ def cp_partials(x: torch.Tensor, y):
 
 
 def whist_smem(group: int, warps: int, nedges: int, nrows: int = 1) -> int:
-    """Shared bytes of a K1w/K1s/K1ws (``group`` 1) or K3w/K3s/K3ws block:
-    the edges, ``nrows`` f32 rows (mass, sum, or both) per warp and ladder,
-    a stage of 32 floats per warp and row, and the int counts per
-    ladder."""
+    """Shared bytes of a grouped K1w/K1s/K1ws block (``group`` 1;
+    ``csrc/hist_batched.cu``): the edges, ``nrows`` f32 rows (mass, sum, or
+    both) per warp and ladder, a stage of 32 floats per warp and row, and
+    the int counts per ladder.  ``csrc/hist_multi.cu``'s blocks:
+    :func:`hist_multi_smem`."""
     nslots = nedges + 1
     return 4 * (group * nedges + warps * group * nslots * nrows
                 + warps * 32 * nrows + group * nslots)
@@ -616,6 +719,32 @@ def sorted_sums_group(k: int, nedges: int, nrows: int) -> int:
     return group
 
 
+def hist_multi_layout(k: int, nedges: int, nrows: int) -> tuple[int, int]:
+    """``(group, warps)`` of a ``csrc/hist_multi.cu`` block with ``nrows``
+    f32 rows per slot (K3w, K3s: 1; K3ws: 2): the warps from the width and
+    the leg alone (``WHIST_MAX_WARPS``, halved while a block of one ladder
+    overflows ``HIST_OPTIN_SMEM``), so that a ladder's order of additions
+    never follows K; then the smallest power of two of ladders that covers
+    ``k`` up to ``HIST_MULTI_GROUP``, halved while the block overflows.
+    Raises when one ladder and one warp do not fit."""
+    warps = WHIST_MAX_WARPS
+    while warps > 1 and hist_multi_smem(1, warps, nedges, nrows) \
+            > HIST_OPTIN_SMEM:
+        warps //= 2
+    if hist_multi_smem(1, warps, nedges, nrows) > HIST_OPTIN_SMEM:
+        raise ValueError(f"{nedges - 1} bins need "
+                         f"{hist_multi_smem(1, 1, nedges, nrows)} bytes of "
+                         f"shared memory per block with {nrows} f32 row(s) "
+                         f"per slot; a block holds at most {HIST_OPTIN_SMEM}")
+    group = 1
+    while group < min(k, HIST_MULTI_GROUP):
+        group *= 2
+    while group > 1 and hist_multi_smem(group, warps, nedges, nrows) \
+            > HIST_OPTIN_SMEM:
+        group //= 2
+    return group, warps
+
+
 def whist_multi_plan(k: int, nedges: int, nrows: int, want_sums: bool,
                      design: str | None = None):
     """``(library, ladders a block, extra launch arguments)`` of a K3w,
@@ -623,11 +752,12 @@ def whist_multi_plan(k: int, nedges: int, nrows: int, want_sums: bool,
     edges: a sums leg in ``design`` (by default
     :func:`hist_multi_sums_layout`'s, which does not follow ``k``), the
     sorted tile in ``hist_multi_sums``, K3w and the grouped design in
-    ``hist_multi`` with :func:`whist_layout`'s warps."""
+    ``hist_multi`` with :func:`hist_multi_layout`'s warps (which do not
+    follow ``k`` either)."""
     design = design or hist_multi_sums_layout(nedges, nrows)
     if want_sums and design == "sorted":
         return "hist_multi_sums", sorted_sums_group(k, nedges, nrows), ()
-    group, warps = whist_layout(k, nedges, nrows)
+    group, warps = hist_multi_layout(k, nedges, nrows)
     return "hist_multi", group, (warps,)
 
 
@@ -719,6 +849,11 @@ def _whist_multi(x: torch.Tensor, w, edges: torch.Tensor, key: str,
         raise ValueError(f"at most {MAX_ROWS * group} ladders per launch, "
                          f"got {k}")
     nblk = fg_blocks(x.shape[0])
+    if lib == "hist_multi" and -(-x.shape[0] // (nblk * extra[0] * 32)) \
+            > 65535:
+        raise ValueError(f"{x.shape[0]} elements give a thread more than "
+                         f"65535 at {extra[0]} warps a block: its 16-bit "
+                         f"bucket counters would carry")
     cnt = torch.zeros((k, nedges + 1), dtype=torch.int32, device=x.device)
     part = torch.empty((nblk, k, nrows, nedges + 1), dtype=torch.float32,
                        device=x.device)
@@ -737,14 +872,23 @@ def _whist_multi(x: torch.Tensor, w, edges: torch.Tensor, key: str,
 
 
 def wcp_histogram_multi(x: torch.Tensor, w: torch.Tensor,
-                        edges: torch.Tensor, *, want_sums: bool = False):
+                        edges: torch.Tensor, *, want_sums: bool = False,
+                        full_bracket: bool = False):
     """K3w: slot counts and masses of one shared ``x``/``w`` (n,), each
     f32/bf16, against K realized f32 ladders ``edges`` (K, nbins+1).
     Returns ``(cnt, wcnt, wsum)``: int32 counts and f32 masses, each
     (K, nbins + 2), slot layout as ``ref.searchsorted_slots``; ``wsum`` is
     ``None``, or with ``want_sums`` (the K3ws leg) the f32 sums of ``w*x``
-    per slot."""
+    per slot.  ``full_bracket`` (every bracket holds every element) lets a
+    first sweep of identical ladders bin the one ladder
+    (:func:`one_ladder`: the same bits)."""
     key = "wcp_histogram_multi" + ("_sums" if want_sums else "")
+    if not want_sums and edges.dim() == 2 and edges.shape[0] > 1 \
+            and one_ladder(edges, full_bracket):
+        cnt, part = _whist_multi(x, w, edges[:1], key)
+        k = edges.shape[0]
+        return (cnt.expand(k, -1).contiguous(),
+                part[:, 0].expand(k, -1).contiguous(), None)
     cnt, part = _whist_multi(x, w, edges, key, want_sums)
     return cnt, part[:, 0], (part[:, 1] if want_sums else None)
 

@@ -69,12 +69,16 @@ def fused_partials_multi(x: torch.Tensor, y: torch.Tensor):
 
 
 def fused_histogram_multi(x: torch.Tensor, edges: torch.Tensor, *,
-                          want_sums: bool = False):
+                          want_sums: bool = False,
+                          full_bracket: bool = False):
     """Shared-x binned pass, counting leg: ``x`` (n,) against K realized
     ladders ``(K, nbins+1)`` -> ``(cnt, bsum)``, ``cnt`` int32
-    ``(K, nbins + 2)``, ``bsum`` as in :func:`fused_histogram_batched`."""
+    ``(K, nbins + 2)``, ``bsum`` as in :func:`fused_histogram_batched`;
+    ``full_bracket`` (every bracket holds every element) may pick the
+    kernel's design on the card."""
     if uses_kernel(x):
-        return cp_objective.cp_histogram_multi(x, edges, want_sums=want_sums)
+        return cp_objective.cp_histogram_multi(x, edges, want_sums=want_sums,
+                                               full_bracket=full_bracket)
     return ref.cp_histogram_multi_ref(x, edges, want_sums=want_sums)
 
 
@@ -129,14 +133,16 @@ def fused_weighted_partials_multi(x: torch.Tensor, w: torch.Tensor,
 
 def fused_weighted_histogram_multi(x: torch.Tensor, w: torch.Tensor,
                                    edges: torch.Tensor, *,
-                                   want_sums: bool = False):
+                                   want_sums: bool = False,
+                                   full_bracket: bool = False):
     """Shared-x weighted binned pass: ``x``/``w`` (n,) against K realized
     ladders ``(K, nbins+1)`` -> ``(cnt, wcnt, wsum)``, each
     ``(K, nbins + 2)``, ``wsum`` as in
-    :func:`fused_weighted_histogram_batched`."""
+    :func:`fused_weighted_histogram_batched`; ``full_bracket`` as in
+    :func:`fused_histogram_multi`."""
     if uses_kernel_weighted(x, w):
-        return cp_objective.wcp_histogram_multi(x, w, edges,
-                                                want_sums=want_sums)
+        return cp_objective.wcp_histogram_multi(
+            x, w, edges, want_sums=want_sums, full_bracket=full_bracket)
     return ref.wcp_histogram_multi_ref(x, w, edges, want_sums=want_sums)
 
 
@@ -155,3 +161,15 @@ def fused_weighted_histogram(x: torch.Tensor, w: torch.Tensor,
     if uses_kernel_weighted(x, w):
         return cp_objective.wcp_histogram(x, w, edges, want_sums=want_sums)
     return ref.wcp_histogram_ref(x, w, edges, want_sums=want_sums)
+
+
+def row_sums(x: torch.Tensor, w=None, c=None, mode: str = "mass", *,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Per-row sums over ``x`` (B, n) — of ``x``, or of the weights ``w``
+    (``mode``: all, ``w*x``, over ``x <= c`` or ``x < c``) — each row
+    summed in an order that does not depend on the other rows: the
+    kernel's f32 sums on the card (``cp_objective.row_sums``), ``dtype``
+    sums row by row elsewhere (``ref.row_sums_ref``).  Returns (B,)."""
+    if uses_kernel(x) if w is None else uses_kernel_weighted(x, w):
+        return cp_objective.row_sums(x, w, c, mode).to(dtype)
+    return ref.row_sums_ref(x, w, c, mode, dtype=dtype)

@@ -32,10 +32,11 @@ def cp_partials_ref(x: torch.Tensor, y):
 
 def cp_partials_batched_ref(x: torch.Tensor, y):
     """Plain version of ``cp_partials_batched``: ``x`` (B, n), pivots ``y``
-    (B,); returns four (B,) tensors."""
+    (B,); returns four (B,) tensors, each row reduced alone
+    (:func:`_by_row`)."""
     dt = _accum_dtype(x)
     y = torch.as_tensor(y, dtype=dt, device=x.device).reshape(-1, 1)
-    return _partials(x.to(dt) - y, dim=-1)
+    return _by_row(_partials, x.to(dt) - y)
 
 
 def cp_partials_multi_ref(x: torch.Tensor, y):
@@ -46,6 +47,17 @@ def cp_partials_multi_ref(x: torch.Tensor, y):
     x = x.reshape(-1).to(dt)
     y = torch.as_tensor(y, dtype=dt, device=x.device).reshape(-1)
     parts = [_partials(x - yj, dim=-1) for yj in y]
+    return tuple(torch.stack(p) for p in zip(*parts))
+
+
+def _by_row(fn, *rows: torch.Tensor):
+    """``fn(*tensors, dim=-1)`` on (B, n) tensors, each row reduced alone
+    and the (B,) results stacked: torch splits a reduction over a whole
+    block by its shape and threads, so a row's f32 sums would otherwise
+    depend on the other rows."""
+    if rows[0].shape[0] == 0:
+        return fn(*rows, dim=-1)
+    parts = [fn(*r, dim=-1) for r in zip(*(t.unbind(0) for t in rows))]
     return tuple(torch.stack(p) for p in zip(*parts))
 
 
@@ -61,6 +73,32 @@ def _partials(d: torch.Tensor, dim: int):
 # ---------------------------------------------------------------------------
 # Binned bracket descent: realized edges, slot assignment, histograms
 # ---------------------------------------------------------------------------
+
+
+def row_sums_ref(x: torch.Tensor, w=None, c=None, mode: str = "mass", *,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of ``cp_objective.row_sums``: per-row sums in
+    ``dtype`` over ``x`` (B, n) of ``x`` itself (``w=None``), or of its
+    weights ``w``: all of them (``"mass"``), ``w * x`` (``"moment"``), those
+    over ``x <= c`` (``"le"``) or ``x < c`` (``"lt"``), ``c`` (B,).  Each
+    row is summed alone (``torch.sum`` of the row), so its sum does not
+    depend on the other rows, whose number changes how torch splits a
+    reduction over the whole block."""
+    if w is None:
+        v = x
+    elif mode == "mass":
+        v = w
+    elif mode == "moment":
+        v = w * x
+    elif mode in ("le", "lt"):
+        zero = torch.zeros((), dtype=w.dtype, device=w.device)
+        v = torch.where(x <= c[:, None] if mode == "le" else x < c[:, None],
+                        w, zero)
+    else:
+        raise ValueError(f"unknown row_sums mode {mode!r}")
+    if v.shape[0] == 0:
+        return torch.zeros((0,), dtype=dtype, device=v.device)
+    return torch.stack([torch.sum(r, dtype=dtype) for r in v.unbind(0)])
 
 
 def bin_edges(lo, hi, nbins: int) -> torch.Tensor:
@@ -213,10 +251,11 @@ def wcp_partials_ref(x: torch.Tensor, w: torch.Tensor, y):
 
 def wcp_partials_batched_ref(x: torch.Tensor, w: torch.Tensor, y):
     """Plain version of ``wcp_partials_batched``: ``x``/``w`` (B, n),
-    pivots ``y`` (B,); returns six (B,) tensors."""
+    pivots ``y`` (B,); returns six (B,) tensors, each row reduced alone
+    (:func:`_by_row`)."""
     dt = _waccum_dtype(x, w)
     y = torch.as_tensor(y, dtype=dt, device=x.device).reshape(-1, 1)
-    return _wpartials(x.to(dt) - y, w.to(dt), dim=-1)
+    return _by_row(_wpartials, x.to(dt) - y, w.to(dt).broadcast_to(x.shape))
 
 
 def wcp_partials_multi_ref(x: torch.Tensor, w: torch.Tensor, y):

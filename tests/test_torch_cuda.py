@@ -405,9 +405,13 @@ def test_weighted_paths_launch_only_weighted_kernels(cuda):
         cp_objective.reset_launches()
         res = call()
         launched = {k: v for k, v in cp_objective.LAUNCHES.items() if v}
-        # each weighted pass sums its f32 block partials with sum_blocks
+        # each weighted pass sums its f32 block partials with sum_blocks,
+        # and so does each of the masses the rows path and the finalize
+        # sum per row (row_sums)
+        rows = launched.pop("row_sums", 0)
+        assert rows > 0
         want_launches = {key: int(res.iters.max()),
-                         "sum_blocks": int(res.iters.max())}
+                         "sum_blocks": int(res.iters.max()) + rows}
         assert launched == want_launches, launched
         if not small:
             qs = [0.5] if res.value.dim() == 0 else [0.1, 0.5, 0.9]
@@ -594,9 +598,12 @@ def test_polish_and_warm_paths_launch_their_kernels(cuda):
         cp_objective.reset_launches()
         res = call("binned_polish")
         launched = {k: v for k, v in cp_objective.LAUNCHES.items() if v}
-        # each sums pass sums its f32 block partials with sum_blocks
+        # each sums pass sums its f32 block partials with sum_blocks, and
+        # so does each per-row sum of the rows path and the finalize
+        rows = launched.pop("row_sums", 0)
         assert launched == {key: int(res.iters.max()),
-                            "sum_blocks": int(res.iters.max())}, launched
+                            "sum_blocks": int(res.iters.max()) + rows}, \
+            launched
         assert torch.equal(res.value, call("sort").value)
     cold = selection.median(x)
     cp_objective.reset_launches()
@@ -717,26 +724,26 @@ def test_row_masses_ignore_the_other_rows(cuda):
             assert torch.equal(_bits(mass[r:r + 1]), _bits(m1))
 
 
-@pytest.mark.parametrize("ladders", ["first sweep", "narrow"])
+@pytest.mark.parametrize("ladders", ["first sweep", "narrow", "cycled",
+                                     "staggered", "polished"])
 def test_ladder_masses_ignore_the_other_ladders(cuda, ladders):
     """K3w at 1024 block partials with dense weights, on the ladders of a
-    16-quantile descent (the first sweep's identical ones, then the
-    distinct narrow ones it picks): each ladder alone, and the 16 in
-    another order, give their entries' counts and masses bit for bit."""
+    16-quantile descent (the first sweep's identical ones, the distinct
+    narrow ones it picks, the polished first sweep's, every element inside
+    all 16) and on nested, disjoint and partly overlapping ones: each
+    ladder alone, and the 16 in another order, give their entries' counts
+    and masses bit for bit, and so do the 16 with ``full_bracket`` (a first
+    sweep of identical ladders bins the one ladder)."""
     n = (1 << 23) + 3
     g = torch.Generator(device=cuda).manual_seed(12)
     x = torch.randn(n, generator=g, device=cuda)
     w = torch.rand(n, generator=g, device=cuda) + 0.5
-    e = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
-    e = e.contiguous()
-    if ladders == "narrow":
-        ks = selection.ranks_from_quantiles(np.arange(1, 17) / 17, n)
-        cnt1 = cp_objective.cp_histogram_multi(x, e)[0]
-        cum = torch.cumsum(cnt1[:, :-1], dim=-1, dtype=torch.int32)
-        yl, yr, *_ = selection.binned_descent_step(
-            cum, e, e[:, 0], e[:, -1], ks.to(cuda))
-        e = ref.bin_edges(yl, yr, 128).contiguous()
+    ks = selection.ranks_from_quantiles(np.arange(1, 17) / 17, n).to(cuda)
+    e = _descent_ladders(ladders, x, ks, cuda)
     cnt, mass, _ = cp_objective.wcp_histogram_multi(x, w, e)
+    # a first sweep (full_bracket) of identical ladders bins the one ladder
+    cf, mf, _ = cp_objective.wcp_histogram_multi(x, w, e, full_bracket=True)
+    assert torch.equal(cnt, cf) and torch.equal(_bits(mass), _bits(mf))
     for j in range(16):
         c1, m1, _ = cp_objective.wcp_histogram(x, w, e[j])
         assert torch.equal(cnt[j], c1)
@@ -756,9 +763,10 @@ def test_ladder_masses_ignore_the_other_ladders(cuda, ladders):
 def _descent_ladders(kind, x, ks, device):
     """16 ladders of a 16-quantile descent on ``x``: the first sweep's
     identical ones over [min, max], the distinct narrow ones its descent
-    step picks, the five bracket kinds cycled (overlapping), or the
-    polished first sweep's (each over [min, max], half its edges around its
-    own seed cut)."""
+    step picks, the five bracket kinds cycled (overlapping), 16 staggered
+    brackets each overlapping its neighbours in part, or the polished first
+    sweep's (each over [min, max], half its edges around its own seed
+    cut)."""
     e = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
     e = e.contiguous()
     if kind == "narrow":
@@ -769,6 +777,10 @@ def _descent_ladders(kind, x, ks, device):
         e = ref.bin_edges(yl, yr, 128).contiguous()
     elif kind == "cycled":
         e = _ladders(16, device)
+    elif kind == "staggered":
+        lo = -2.0 + 0.25 * torch.arange(16, device=device,
+                                        dtype=torch.float32)
+        e = ref.bin_edges(lo, lo + 1.0, 128).contiguous()
     elif kind == "polished":
         ev = objective.SharedEvaluator(x, ks)
         s0, xmin, xmax, kk, _, xmean = selection._seed_state(ev)
@@ -854,3 +866,103 @@ def test_sorted_sums_at_the_shared_memory_edge(cuda, nedges, weighted):
     assert torch.equal(got[0], want[0])
     for a, b in zip(got[1].unbind(1), want[1:]):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# K3's two designs, the grouped sums legs' company, and the rows path's sums
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ladders", ["first sweep", "staggered", "cycled"])
+def test_k3_designs_equal_plain(cuda, dtype, ladders):
+    """K3 with and without ``full_bracket`` (on a first sweep's identical
+    ladders K1's lane kernel bins the one ladder): counts bit for bit."""
+    x = _data(1, 1 << 20, 19, cuda)[0].to(dtype)
+    ks = selection.ranks_from_quantiles(np.arange(1, 17) / 17, x.numel())
+    e = _descent_ladders(ladders, x.float(), ks.to(cuda), cuda)
+    want, _ = ref.cp_histogram_multi_ref(x, e, want_sums=False)
+    for full in (False, True):
+        got, _ = cp_objective.cp_histogram_multi(x, e, full_bracket=full)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ladders", ["staggered", "polished"])
+def test_grouped_sums_ignore_the_other_ladders(cuda, ladders):
+    """K3s and K3ws in the grouped design (``hist_multi.cu``, the wide
+    ladders' kernel) with dense weights: each ladder alone gives its
+    entry's counts, sums and masses bit for bit."""
+    n = (1 << 22) + 3
+    g = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn(n, generator=g, device=cuda)
+    w = torch.rand(n, generator=g, device=cuda) + 0.5
+    ks = selection.ranks_from_quantiles(np.arange(1, 17) / 17, n).to(cuda)
+    e = _descent_ladders(ladders, x, ks, cuda)
+    for key, ww in (("cp_histogram_multi_sums", None),
+                    ("wcp_histogram_multi_sums", w)):
+        got = cp_objective._whist_multi(x, ww, e, key, True,
+                                        design="grouped")
+        for j in range(16):
+            one = cp_objective._whist_multi(x, ww, e[j:j + 1], key, True,
+                                            design="grouped")
+            for a, b in zip(got, one):
+                assert torch.equal(_bits(a[j]), _bits(b[0]))
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_row_sums_equal_plain_and_ignore_the_batch(cuda, xdt, wdt):
+    """``row_sums``: with integer weights the masses (all, at or below and
+    below a per-row value) equal the plain version bit for bit; with dense
+    weights every mode stays near the f64 sums, and each row alone gets
+    its entry's bits."""
+    x = _data(9, 300_001, 21, cuda)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    wi = torch.randint(0, 8, x.shape, generator=g, device=cuda).float()
+    c = x[:, 777].contiguous()
+    xt, wt = x.to(xdt), wi.to(wdt)
+    for mode in ("mass", "le", "lt"):
+        got = cp_objective.row_sums(xt, wt, c, mode)
+        want = ref.row_sums_ref(xt, wt, c, mode, dtype=torch.float32)
+        assert torch.equal(got, want)
+    xd = torch.randn((9, 300_001), generator=g, device=cuda)
+    wd = torch.rand((9, 300_001), generator=g, device=cuda) + 0.5
+    for w, mode in ((None, "mass"), (wd, "mass"), (wd, "moment"),
+                    (wd, "le"), (wd, "lt")):
+        got = cp_objective.row_sums(xd, w, c, mode)
+        exact = ref.row_sums_ref(xd.double(), None if w is None else
+                                 w.double(), c.double(), mode,
+                                 dtype=torch.float64)
+        torch.testing.assert_close(got.double(), exact, rtol=1e-5,
+                                   atol=1e-5 * float(exact.abs().max()))
+        for r in range(9):
+            one = cp_objective.row_sums(xd[r:r + 1], None if w is None
+                                        else w[r:r + 1], c[r:r + 1], mode)
+            assert torch.equal(_bits(one), _bits(got[r:r + 1]))
+
+
+@pytest.mark.parametrize("leg", ["weighted dense", "counting cp"])
+def test_rows_answers_ignore_the_batch(cuda, leg):
+    """Every SelectResult field of a row alone, and of the rows permuted,
+    equals its entry in the batch, bit for bit: with dense weights, and on
+    the counting leg's cp method, whose first pivot follows the row's
+    mean."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn((16, 1 << 18), generator=g, device=cuda)
+    w = torch.rand((16, 1 << 18), generator=g, device=cuda) + 0.5
+    wks = torch.rand(16, generator=g, device=cuda) * w.sum(dim=1)
+    ks = torch.randint(1, (1 << 18) + 1, (16,), generator=g, device=cuda)
+    if leg == "weighted dense":
+        def run(r):
+            return selection.weighted_select_rows(x[r], w[r], wks[r])
+    else:
+        def run(r):
+            return selection.select_rows(x[r], ks[r], method="cp")
+    every = torch.arange(16, device=cuda)
+    batch = run(every)
+    perm = torch.randperm(16, generator=g, device=cuda)
+    for a, b in zip(run(perm), batch):
+        assert torch.equal(_bits(a), _bits(b[perm]))
+    for r in range(16):
+        for a, b in zip(run(every[r:r + 1]), batch):
+            assert torch.equal(_bits(a), _bits(b[r:r + 1]))
