@@ -118,7 +118,13 @@ Phases (any failure raises and the script exits non-zero):
    with the SPECIALS each slot sum within the leg's chain (``f32_chain``,
    or ``sorted_chain`` for the sorted-tile design) * 2^-24 of the f64
    plain version (relative to the slot's sum of |values|); two launches
-   identical; at n = 2^23 + 3 (1024 blocks) with dense weights each of 16
+   identical; K1s and K1ws also on the first sweeps the engine bins (the
+   polished ladder, a warm tick's ``prior_edges`` ladder, at ``N_ODD`` the
+   uniform one at 8192 bins), in both designs (lane columns with
+   ``full_bracket``, grouped rows), and at n = 2^23 + 3 with dense weights
+   each of 16 rows alone and the 16 permuted equal to the batch, bit for
+   bit (``rows_alone_equal_batch``); at n = 2^23 + 3 (1024 blocks) with
+   dense weights each of 16
    ladders alone, and the 16 permuted, equal their entries among 16, bit
    for bit, on K3s and K3ws, on five ladder sets (``identity_ladders``:
    the first sweep's identical ladders, the narrow ones, the five bracket
@@ -137,7 +143,9 @@ Phases (any failure raises and the script exits non-zero):
    ``reselect`` with 0/1 weights on the same stream, and
    ``order_statistic(method='cp', prior=cold)`` at n = 50,000 (1 pass);
 14. timings: each sums leg against its bound, its no-sums twin and its
-   plain version, K3s and K3ws also on the polished first sweep; the
+   plain version, on the polished first sweep too; K1s and K1ws on the
+   polished, uniform and narrow ladders at (1, 2^27) and (64, 2^20) in
+   each design, and K1 on a warm tick's ladder (``rows_sums_times``); the
    polished median, rows batch, 16 quantiles and 16 weighted quantiles
    against their 'binned' twins with sweeps per answer, the multi-k ones
    with loop and finalize; one warm tracker tick against a cold median on
@@ -152,8 +160,9 @@ launch, and the main paths' launch counts are held to that.
 The line before the last two is ``{"kernels": [...]}`` (all twelve kernel
 legs: K1-K4, their weighted legs K1w-K4w, and the sums legs K1s, K1ws,
 K3s, K3ws; and ``sum_blocks``, the block sums of every leg with f32
-partials; K1's and K1w's rows with first- and narrow-sweep times, their
-registers, shared memory and blocks per SM); then the
+partials; K1's, K1w's, K1s's and K1ws's rows with first- and narrow-sweep
+times (K1s/K1ws also polished), their registers, shared memory and blocks
+per SM); then the
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -323,13 +332,15 @@ def k3_kw(cpo, full: bool = True, fn=None) -> dict:
     return {"full_bracket": full} if "full_bracket" in params else {}
 
 
-def k1_designs(cpo, nedges: int, nrows: int, n: int):
+def k1_designs(cpo, nedges: int, nrows: int, n: int, sums: bool = False):
     """The ``full_bracket`` values that reach distinct designs of K1
-    (``nrows`` 0), K1w/K1s (1) or K1ws (2) at this call."""
+    (``nrows`` 0), K1w (1), K1s (1, ``sums``) or K1ws (2) at this call."""
     if not full_kw(cpo):
         return [False]
-    lay = {f: cpo.hist_rows_layout(nedges, nrows, n, f) for f in (False,
-                                                                  True)}
+    kw = ({"sums": sums} if "sums" in inspect.signature(
+        cpo.hist_rows_layout).parameters else {})
+    lay = {f: cpo.hist_rows_layout(nedges, nrows, n, f, **kw)
+           for f in (False, True)}
     return [False] if lay[True] == lay[False] else [False, True]
 
 
@@ -687,7 +698,8 @@ def same_results(a, b) -> bool:
 
 
 def rows_answers_alone_equal_batch(sel, check: bool = True) -> dict:
-    """``weighted_select_rows`` on (64, 2^20) with dense weights and
+    """``weighted_select_rows`` on (64, 2^20) with dense weights ('binned'
+    and 'binned_polish', whose first sweep runs K1ws) and
     ``select_rows(method='cp')`` (whose first pivot follows each row's
     mean): whether every ``SelectResult`` field of each row alone, and of
     the 64 rows permuted, equals its entry among the 64, bit for bit
@@ -702,6 +714,8 @@ def rows_answers_alone_equal_batch(sel, check: bool = True) -> dict:
     every = torch.arange(ROWS, device=DEVICE)
     cases = {"weighted dense": lambda r: sel.weighted_select_rows(
                  xr[r], wr[r], wks[r]),
+             "weighted dense polish": lambda r: sel.weighted_select_rows(
+                 xr[r], wr[r], wks[r], method="binned_polish"),
              "counting cp": lambda r: sel.select_rows(xr[r], ks[r],
                                                       method="cp")}
     out = {}
@@ -1021,14 +1035,19 @@ def check_k1w(cpo, ref) -> dict:
     return chk.result()
 
 
-def rows_alone_equal_batch(cpo, ref, check: bool = True) -> bool:
+def rows_alone_equal_batch(cpo, ref, sel=None, obj=None,
+                           check: bool = True):
     """K1w at n = N_IDENT (1024 block partials) with dense weights, 16
     rows on their first sweep's ladders: whether each row alone gives the
-    same counts and masses, bit for bit, as its entry in the batch (raises
-    if not, with ``check``)."""
+    same counts and masses, bit for bit, as its entry in the batch; with
+    ``sel`` and ``obj``, by label, K1w and also K1s and K1ws on their
+    polished first-sweep ladders, each row alone and the 16 permuted
+    against the batch, in every design the call can take (raises if not,
+    with ``check``)."""
     x = torch.randn((16, N_IDENT), generator=gen(301), device=DEVICE)
     wd = dense_weights((16, N_IDENT), 302)
     e = first_sweep_edges(ref, x, 128)
+    out = {}
     same = True
     for full in k1_designs(cpo, e.shape[1], 1, N_IDENT):
         kw = full_kw(cpo, full)
@@ -1038,10 +1057,31 @@ def rows_alone_equal_batch(cpo, ref, check: bool = True) -> bool:
                                                   e[r:r + 1], **kw)
             same &= torch.equal(cnt[r:r + 1], c1) and same_bits(
                 mass[r:r + 1], m1)
-    if check and not same:
-        raise AssertionError("K1w: a row alone differs from its entry in a "
-                             "batch of 16 (1024 blocks, dense weights)")
-    return same
+    out["k1w first sweep"] = same
+    if sel is not None:
+        perm = torch.randperm(16, generator=gen(309), device=DEVICE)
+        k = torch.full((16,), (N_IDENT + 1) // 2, device=DEVICE)
+        for leg, w, nrows in (("k1s", None, 1), ("k1ws", wd, 2)):
+            e = rows_polish_edges(sel, obj, x, k if w is None
+                                  else 0.5 * w.sum(dim=1), w)
+            same = True
+            for full in k1_designs(cpo, e.shape[1], nrows, N_IDENT, True):
+                got = rows_sums_call(cpo, x, w, e, full)
+                for r in range(16):
+                    one = rows_sums_call(cpo, x[r:r + 1],
+                                    None if w is None else w[r:r + 1],
+                                    e[r:r + 1], full)
+                    same &= same_outputs([g[r:r + 1] for g in got], one)
+                pw = None if w is None else w[perm].contiguous()
+                same &= same_outputs([g[perm] for g in got], rows_sums_call(
+                    cpo, x[perm].contiguous(), pw, e[perm].contiguous(),
+                    full))
+            out[f"{leg} polished first sweep"] = same
+    if check and not all(out.values()):
+        raise AssertionError(f"a row alone or the rows permuted differ from "
+                             f"the batch of 16 (1024 blocks, dense "
+                             f"weights): {out}")
+    return out if sel is not None else out["k1w first sweep"]
 
 
 def polish_first_edges(sel, obj, x, k, w=None) -> torch.Tensor:
@@ -1051,11 +1091,40 @@ def polish_first_edges(sel, obj, x, k, w=None) -> torch.Tensor:
     ``polish_edges`` ladder per target over [min, max], half its edges
     around its own cut (16 distinct ladders for 16 targets)."""
     ev = obj.SharedEvaluator(x, k, **({} if w is None else {"weights": w}))
+    return polish_seed_edges(sel, ev)
+
+
+def polish_seed_edges(sel, ev) -> torch.Tensor:
+    """``binned_loop_batched``'s sweep-1 ladders with ``polish=True`` on
+    the evaluator ``ev``: the seed state, the analytic seed cut (the
+    bracket's middle where it is not strictly inside), ``polish_edges``
+    over each target's [min, max] with 128 bins."""
     s0, xmin, xmax, kk, _, xmean = sel._seed_state(ev)
     cut0 = sel._seed_cut(ev, kk, xmin, xmax, xmean)
     bad = ~torch.isfinite(cut0) | (cut0 <= s0.yL) | (cut0 >= s0.yR)
     tp = torch.where(bad, 0.5 * (s0.yL + s0.yR), cut0)
     return sel.polish_edges(s0.yL, s0.yR, tp, 128).contiguous()
+
+
+def rows_polish_edges(sel, obj, x, k, w=None) -> torch.Tensor:
+    """The polished first sweep's ladders of a rows solve on ``x`` (B, n)
+    for per-row targets ``k`` (ranks, or target masses with weights
+    ``w``), as the engine builds them: one ``polish_edges`` ladder per row
+    over its [min, max], half its edges around its own seed cut (the rows
+    twin of ``polish_first_edges``)."""
+    ev = obj.RowsEvaluator(x, k, **({} if w is None else {"weights": w}))
+    return polish_seed_edges(sel, ev)
+
+
+def rows_prior_edges(sel, obj, x, k, prior) -> torch.Tensor:
+    """A warm tick's first-sweep ladders on ``x`` (B, n) for ranks ``k``:
+    ``prior_edges`` over each row's [min, max] from ``prior`` (a
+    ``SelectResult`` of the same rows), as ``binned_loop_batched`` builds
+    them with ``prior=``."""
+    ev = obj.RowsEvaluator(x, k)
+    s0 = sel._seed_state(ev)[0]
+    pb = sel._prior_to(sel.as_prior(prior), s0.yL.dtype, s0.yL)
+    return sel.prior_edges(s0.yL, s0.yR, pb, 128).contiguous()
 
 
 def identity_ladders(cpo, ref, sel, obj, x) -> dict:
@@ -1687,59 +1756,88 @@ def f64_sums(plain, x, w, e):
                   want_sums=True)[2].abs())
 
 
-def check_sums_rows(cpo, ref) -> tuple:
-    """K1s and K1ws against their plain versions at the K1 shapes."""
+def k1_sums_ladders(sel, obj, ref, x, n):
+    """(label, edges) of the K1s and K1ws checks on ``x`` (B, n): the five
+    bracket kinds (one per row for a batch, each in turn for B = 1), and
+    the first sweeps the engine bins (made from ``x`` with its non-finite
+    values set to 0): the polished one (``rows_polish_edges``), a warm
+    tick's (``rows_prior_edges``, from a cold answer on the same rows) and
+    at ``N_ODD`` the uniform one at 8192 bins (past the lane-column
+    tables: the grouped design)."""
     kinds = bracket_kinds()
+    rows = x.shape[0]
+    ladders = ([[kinds[i % len(kinds)] for i in range(rows)]]
+               if rows > 1 else [[kind] for kind in kinds])
+    out = [(str(ladder[:3]), edge_ladders(ref, ladder, 128))
+           for ladder in ladders]
+    xc = torch.nan_to_num(x.float(), nan=0.0, posinf=0.0, neginf=0.0)
+    k = torch.full((rows,), (n + 1) // 2, device=DEVICE)
+    out.append(("polished first sweep", rows_polish_edges(sel, obj, xc, k)))
+    out.append(("prior", rows_prior_edges(sel, obj, xc, k,
+                                          sel.select_rows(xc, k))))
+    if n == N_ODD:
+        out.append(("first sweep, 8192 bins", first_sweep_edges(ref, x,
+                                                                8192)))
+    return out
+
+
+def check_sums_rows(cpo, ref, sel, obj) -> tuple:
+    """K1s and K1ws against their plain versions at the K1 shapes, on the
+    ladders of ``sums_row_ladders``, in every design the call can take (the
+    lane-column design with ``full_bracket`` on rows of at least
+    ``LANE_SUMS_MIN_N``, the grouped one); each row alone against its
+    entry in a batch (``rows_alone_equal_batch``)."""
     c1s, c1ws = SumsCheck("K1s"), SumsCheck("K1ws")
+    legs = ((c1s, False, 1), (c1ws, True, 2))
     for rows, n, seed in K1_SHAPES:
-        ladders = ([[kinds[i % len(kinds)] for i in range(rows)]]
-                   if rows > 1 else [[kind] for kind in kinds])
         xi = int_sparse_data(rows, n, seed + 100)
         wi = int_weights((rows, n), seed + 101)
-        for ladder in ladders:
-            e = edge_ladders(ref, ladder, 128)
-            for xdt in (torch.float32, torch.bfloat16):
-                x = xi.to(xdt)
-                for full in k1_designs(cpo, e.shape[1], 1, n):
-                    c1s.exact(cpo.cp_histogram_batched(
-                        x, e, want_sums=True, **full_kw(cpo, full)),
-                        ref.cp_histogram_batched_ref(x, e, want_sums=True),
-                        f"({rows}, {n}) {xdt} {ladder[:3]} full={full}")
-            for xdt, wdt in WDTYPES:
-                x, w = xi.to(xdt), wi.to(wdt)
-                c1ws.exact(cpo.wcp_histogram_batched(x, w, e, want_sums=True),
-                           ref.wcp_histogram_batched_ref(x, w, e,
-                                                         want_sums=True),
-                           f"({rows}, {n}) {xdt} {wdt} {ladder[:3]}")
+        ladders = k1_sums_ladders(sel, obj, ref, xi, n)
+        for label, e in ladders:
+            for chk, weighted, nrows in legs:
+                pairs = (WDTYPES if weighted else
+                         ((torch.float32, None), (torch.bfloat16, None)))
+                for xdt, wdt in pairs:
+                    x = xi.to(xdt)
+                    w = None if wdt is None else wi.to(wdt)
+                    want = (ref.cp_histogram_batched_ref(x, e, want_sums=True)
+                            if w is None else ref.wcp_histogram_batched_ref(
+                                x, w, e, want_sums=True))
+                    for full in k1_designs(cpo, e.shape[1], nrows, n, True):
+                        chk.exact(rows_sums_call(cpo, x, w, e, full), want,
+                                  f"({rows}, {n}) {xdt} {wdt} {label} "
+                                  f"full={full}")
         del xi, wi
         x = special_data(rows, n, seed + 102)
         wd = dense_weights((rows, n), seed + 103)
         chain = f32_chain(cpo, n)
         plain = ref.wcp_histogram_batched_ref
-        for ladder in ladders:
-            e = edge_ladders(ref, ladder, 128)
-            for full in k1_designs(cpo, e.shape[1], 1, n):
-                got = cpo.cp_histogram_batched(x, e, want_sums=True,
-                                               **full_kw(cpo, full))
-                c1s.near(got[1], *f64_sums(plain, x, None, e), got[0],
-                         chain, f"({rows}, {n}) {ladder[:3]} full={full}")
-            got = cpo.wcp_histogram_batched(x, wd, e, want_sums=True)
-            c1ws.near(got[2], *f64_sums(plain, x, wd, e), got[0], chain,
-                      f"({rows}, {n}) {ladder[:3]}")
-            for full in k1_designs(cpo, e.shape[1], 1, n):
-                c1s.repeat(lambda: cpo.cp_histogram_batched(
-                    x, e, want_sums=True, **full_kw(cpo, full)),
-                    f"({rows}, {n}) full={full}")
-            c1ws.repeat(lambda: cpo.wcp_histogram_batched(x, wd, e,
-                                                          want_sums=True),
-                        f"({rows}, {n})")
+        for label, e in k1_sums_ladders(sel, obj, ref, x, n):
+            for chk, weighted, nrows in legs:
+                w = wd if weighted else None
+                for full in k1_designs(cpo, e.shape[1], nrows, n, True):
+                    got = rows_sums_call(cpo, x, w, e, full)
+                    chk.near(got[-1], *f64_sums(plain, x, w, e), got[0],
+                             chain, f"({rows}, {n}) {label} full={full}")
+                    chk.repeat(lambda: rows_sums_call(cpo, x, w, e, full),
+                               f"({rows}, {n}) {label} full={full}")
         del x, wd
+    ident = rows_alone_equal_batch(cpo, ref, sel, obj)
     log(f"K1s/K1ws hist_batched sums legs == plain version: counts, masses "
         f"and sums bit for bit on integer data with inf/NaN/±0 (x and w "
         f"each f32 and bf16), randn sums within {c1s.bound:.3g} of f64 "
         f"(worst {c1s.rel:.3g} / {c1ws.rel:.3g} of the slot's |sum|), two "
-        f"launches identical, (rows, n) {[s[:2] for s in K1_SHAPES]}")
-    return c1s.result(), c1ws.result()
+        f"launches identical, (rows, n) {[s[:2] for s in K1_SHAPES]}, on "
+        f"the bracket kinds and the polished, prior and (n={N_ODD}) "
+        f"8192-bin first sweeps, in each design the call can take; at "
+        f"n={N_IDENT} a row alone and the rows permuted == the batch of "
+        f"16: {json.dumps(ident)}")
+    return ({**c1s.result(), "alone_equals_batch": {
+                k.split(" ", 1)[1]: v for k, v in ident.items()
+                if k.startswith("k1s ")}},
+            {**c1ws.result(), "alone_equals_batch": {
+                k.split(" ", 1)[1]: v for k, v in ident.items()
+                if k.startswith("k1ws ")}})
 
 
 def check_sums_multi(cpo, ref, sel, obj) -> tuple:
@@ -1995,7 +2093,11 @@ def sums_timings(sel, cpo, ref, obj, tick) -> dict:
     cnt, _ = cpo.cp_histogram_batched(x2, e1)
     inside = int(N_BIG - cnt[0, 0] - cnt[0, -1])
     outs = 2 * cnt.numel() * 4
-    # the first sweep's ladder e1 holds every element (full_bracket)
+    k2 = torch.full((1,), (N_BIG + 1) // 2, device=DEVICE)
+    ep = {"k1s": rows_polish_edges(sel, obj, x2, k2),
+          "k1ws": rows_polish_edges(sel, obj, x2, 0.5 * w2.sum(dim=1), w2)}
+    # the first sweep's ladder e1 holds every element (full_bracket), and
+    # so does the polished one (the engine's only first sweep on these legs)
     for key, fn, plain, twin, nbytes, ops in (
             ("k1s", lambda e, **kw: cpo.cp_histogram_batched(
                 x2, e, want_sums=True, **kw),
@@ -2015,6 +2117,7 @@ def sums_timings(sel, cpo, ref, obj, tick) -> dict:
              5 * N_BIG + inside * (steps + 2))):
         out[key] = dict(
             ms=cuda_ms(lambda: fn(e1, **fk), reps=20),
+            polished_ms=cuda_ms(lambda: fn(ep[key], **fk), reps=20),
             narrow_ms=cuda_ms(lambda: fn(e3), reps=20),
             twin_ms=cuda_ms(twin, reps=20),
             plain_ms=cuda_ms(plain, reps=2, rounds=3),
@@ -2109,6 +2212,127 @@ def k3_polish_first_times(sel, obj, cpo, x, ks, wd, wks, reps=5) -> dict:
                         twin_ms=cuda_ms(lambda: twin(e), reps=reps),
                         bound=bound(*k3_sums_work(x, e, cnt, w)),
                         distinct_ladders=distinct)
+    return out
+
+
+def rows_sums_ladders(sel, obj, ref, x, w=None) -> dict:
+    """The ladders K1s (K1ws with dense weights ``w``) meets on ``x``
+    (B, n), 128 bins, as label -> (edges, full_bracket): the polished first
+    sweep's (``rows_polish_edges`` for each row's median rank or half its
+    mass: the engine's only first sweep on these legs), the uniform first
+    sweep's (``bin_edges`` over each row's [min, max]) and a narrow one,
+    (-1e-3, 2e-3]."""
+    rows, n = x.shape
+    k = (torch.full((rows,), (n + 1) // 2, device=DEVICE) if w is None
+         else (0.5 * w.double().sum(dim=1)).float())
+    return {"polished": (rows_polish_edges(sel, obj, x, k, w), True),
+            "uniform": (ref.bin_edges(x.amin(1), x.amax(1), 128)
+                        .contiguous(), True),
+            "narrow": (ref.bin_edges(
+                torch.full((rows,), -1e-3, device=DEVICE),
+                torch.full((rows,), 2e-3, device=DEVICE), 128)
+                .contiguous(), False)}
+
+
+def rows_sums_call(cpo, x, w, e, full, design=None):
+    """One K1s (``w`` None) or K1ws call through its wrapper, or, with
+    ``design``, through ``_hist_rows`` in that design."""
+    if design is not None:
+        key = ("cp" if w is None else "wcp") + "_histogram_batched_sums"
+        return cpo._hist_rows(x, w, e, True, key, full, design=design)
+    if w is None:
+        return cpo.cp_histogram_batched(x, e, want_sums=True,
+                                        **full_kw(cpo, full))
+    return cpo.wcp_histogram_batched(x, w, e, want_sums=True,
+                                     **full_kw(cpo, full))
+
+
+def rows_sums_designs(cpo) -> tuple:
+    """The designs ``_hist_rows`` can be asked for by name (none on a tree
+    whose ``_hist_rows`` takes no ``design``)."""
+    if "design" not in inspect.signature(cpo._hist_rows).parameters:
+        return ()
+    return cpo.ROWS_SUMS_DESIGNS
+
+
+def rows_sums_times(sel, obj, cpo, ref, reps=20) -> dict:
+    """K1s and K1ws (dense f32 w) through their wrappers at (1, 2^27) and
+    (64, 2^20) f32 on the three ladders of ``rows_sums_ladders``, and on
+    first sweeps in each design a tree can be asked for; K1 on a warm
+    tick's ``prior_edges`` ladder beside the uniform one at (1, 2^27):
+    ms by "leg/shape/ladder[/design]", and each leg's bytes bound by
+    "leg/shape/bound"."""
+    out = {}
+    for shape, (rows, n), seed in (("1x2^27", (1, N_BIG), 161),
+                                   ("64x2^20", (ROWS, N_ROW), 162)):
+        x = torch.randn((rows, n), generator=gen(seed), device=DEVICE)
+        wd = dense_weights((rows, n), seed + 1)
+        for leg, w in (("k1s", None), ("k1ws", wd)):
+            nrows = 1 if w is None else 2
+            for label, (e, full) in rows_sums_ladders(sel, obj, ref, x,
+                                                      w).items():
+                out[f"{leg}/{shape}/{label}"] = cuda_ms(
+                    lambda: rows_sums_call(cpo, x, w, e, full), reps=reps)
+                for design in (rows_sums_designs(cpo) if full else ()):
+                    out[f"{leg}/{shape}/{label}/{design}"] = cuda_ms(
+                        lambda: rows_sums_call(cpo, x, w, e, full, design),
+                        reps=reps)
+            nbytes = (x.numel() * (4 if w is None else 8) + rows * 129 * 4
+                      + rows * 130 * 4 * (1 + nrows))
+            out[f"{leg}/{shape}/bound"] = nbytes / HBM_BYTES_PER_S * 1e3
+        if rows == 1:
+            cold = sel.median(x[0])
+            ep = rows_prior_edges(sel, obj, x, (n + 1) // 2, cold)
+            eu = ref.bin_edges(x.amin(1), x.amax(1), 128).contiguous()
+            for label, e in (("prior", ep), ("uniform", eu)):
+                out[f"k1/{shape}/{label}"] = cuda_ms(
+                    lambda: cpo.cp_histogram_batched(x, e, **full_kw(cpo)),
+                    reps=reps)
+        del x, wd
+    return out
+
+
+def polish_rows_times(sel, obj, reps=5) -> dict:
+    """The row histogram's polished answers end to end: ``median`` of 2^27
+    f32, ``weighted_median`` with dense weights, ``select_rows`` on
+    (64, 2^20) with per-row k, each 'binned_polish' (and its 'binned'
+    twin): ms, sweeps, and the stats pass, the loop (stats pass included)
+    and the finalize."""
+    x = torch.randn(N_BIG, generator=gen(8), device=DEVICE)
+    wd = dense_weights(N_BIG, 92)
+    xr = torch.randn((ROWS, N_ROW), generator=gen(9), device=DEVICE)
+    ks = torch.randint(1, N_ROW + 1, (ROWS,), generator=gen(10),
+                       device=DEVICE)
+    cap, cap_rows = sel._default_cap(N_BIG), sel._default_cap_rows(N_ROW)
+    k_med = (N_BIG + 1) // 2
+    cases = (
+        ("median", lambda m: sel.median(x, method=m),
+         lambda: obj.RowsEvaluator(x[None], k_med), cap),
+        ("weighted_median_dense",
+         lambda m: sel.weighted_median(x, wd, method=m),
+         lambda: obj.RowsEvaluator(x[None], 0.5 * wd.sum(),
+                                   weights=wd[None]), cap),
+        ("select_rows", lambda m: sel.select_rows(xr, ks, method=m),
+         lambda: obj.RowsEvaluator(xr, ks), cap_rows))
+    out = {}
+    for label, call, make, cp in cases:
+        for tag, m in (("binned", "binned"), ("polish", "binned_polish")):
+            key = f"{label}_{tag}"
+            out[f"{key}_ms"] = cuda_ms(lambda: call(m), reps=1, rounds=reps)
+            out[f"{key}_sweeps"] = int(call(m).iters.max())
+            if tag == "binned":
+                continue
+            out[f"{key}_stats_ms"] = cuda_ms(lambda: make().init_stats(),
+                                             reps=1, rounds=reps)
+            ev = make()
+            out[f"{key}_loop_ms"] = cuda_ms(lambda: sel.binned_loop_batched(
+                ev, nbins=128, cap=cp, polish=True), reps=1, rounds=reps)
+            st, xmin, xmax = sel.binned_loop_batched(ev, nbins=128, cap=cp,
+                                                     polish=True)
+            w = {"w": ev.w.to(ev.k.dtype)} if ev.weighted else {}
+            out[f"{key}_finalize_ms"] = cuda_ms(lambda: sel._finalize_rows(
+                ev.x, ev.k, st, cp, xmin, xmax, **w), reps=1, rounds=reps)
+            del ev, st
     return out
 
 
@@ -2423,13 +2647,14 @@ def fg_multi_instance(mangled: str):
 
 def hist_batched_instance(mangled: str):
     """The mangled name of a ``hist_batched.cu`` kernel -> "name T/W/leg"
-    (lane_rows_kernel legs 1 K1w, 2 K1s; whist_batched_kernel legs 0 K1w,
-    1 K1s, 2 K1ws; W is T and leg "-" where the kernel has none), or None
-    for another function."""
-    m = re.search(r"\d+(lane_count_kernel|lane_rows_kernel|"
+    (lane_rows_kernel legs 1 K1w, 2 K1s; lane_sums_kernel legs 1 K1s, 2
+    K1ws; whist_batched_kernel legs 0 K1w, 1 K1s, 2 K1ws; W is T and leg
+    "-" where the kernel has none), or None for another function."""
+    m = re.search(r"\d+(lane_count_kernel|lane_rows_kernel|lane_sums_kernel|"
                   r"whist_batched_kernel|hist_batched_kernel)"
                   r"I(f|13__nv_bfloat16)"
-                  r"(f|13__nv_bfloat16|S\w*?_)?(?:Li(\d)E)?E", mangled)
+                  r"(f|13__nv_bfloat16|S\w*?_)?(?:Li(\d)E)?(?:Li\dE)?E",
+                  mangled)
     if not m:
         return None
     name, t, w, leg = m.groups()
@@ -2574,17 +2799,22 @@ def hist_batched_build(_build, cpo) -> dict:
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        for leg, name, nrows in ((0, "k1", 0), (1, "k1w", 1), (2, "k1s", 1)):
+        column = hasattr(cpo, "lane_sums_smem")  # K1s/K1ws lane-column
+        legs = [(0, "k1", 0), (1, "k1w", 1)] + (
+            [(2, "k1s", 1), (3, "k1ws", 2)] if column else [(2, "k1s", 1)])
+        for leg, name, nrows in legs:
+            sums = column and leg >= 2
+            warps = cpo.SUMS_WARPS[nrows] if sums else cpo.LANE_WARPS
+            smem = (cpo.lane_sums_smem(129, nrows) if sums
+                    else cpo.lane_hist_smem(129, nrows))
             blocks = ctypes.c_int(0)
-            rc = fn(leg, 129, cpo.LANE_WARPS, ctypes.byref(blocks))
+            rc = fn(leg, 129, warps, ctypes.byref(blocks))
             if rc != 0:
                 raise RuntimeError(f"occupancy query of {name} failed: CUDA "
                                    f"error {rc}")
-            out[name] = {"smem_bytes": cpo.lane_hist_smem(129, nrows),
-                         "warps": cpo.LANE_WARPS,
+            out[name] = {"smem_bytes": smem, "warps": warps,
                          "blocks_per_sm": blocks.value,
-                         "grid_blocks_per_sm": cpo.blocks_per_sm(
-                             cpo.lane_hist_smem(129, nrows))}
+                         "grid_blocks_per_sm": cpo.blocks_per_sm(smem)}
     return out
 
 
@@ -2851,6 +3081,28 @@ def k1w_outputs(cpo, ref) -> dict:
     return out
 
 
+def k1_sums_outputs(cpo, ref, sel, obj) -> dict:
+    """K1s's and K1ws's counts, sums and masses on 2 rows of ``N_IDENT``
+    (rows long enough for the lane-column design) at two bracket kinds and
+    on the polished first sweep (``full_bracket``): on integer data (every
+    sum exact) and on randn with the SPECIALS and dense weights, for
+    ``compare_outputs``."""
+    out = {}
+    for label, x, w in (("int", int_sparse_data(2, N_IDENT, 48),
+                         int_weights((2, N_IDENT), 49)),
+                        ("dense", special_data(2, N_IDENT, 50),
+                         dense_weights((2, N_IDENT), 51))):
+        xc = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+        k = torch.full((2,), (N_IDENT + 1) // 2, device=DEVICE)
+        for lad, e, full in (
+                ("kinds", edge_ladders(ref, bracket_kinds()[:2], 128), False),
+                ("polished", rows_polish_edges(sel, obj, xc, k), True)):
+            for leg, ww in (("k1s", None), ("k1ws", w)):
+                out[f"{leg} {label} {lad}"] = [
+                    t.tolist() for t in rows_sums_call(cpo, x, ww, e, full)]
+    return out
+
+
 def k3_sweep_times(sel, cpo, ref) -> dict:
     """K3, K3w, K3s and K3ws through their wrappers at 2^27 f32, K = 16
     (dense f32 w): the first sweep's 16 identical ladders (K3 with the
@@ -2906,12 +3158,14 @@ def compare_times(sel, cpo, obj, ref, _build) -> dict:
     alone gets the same bits as among the 16, at 1024 blocks with dense
     weights; fg_multi's build report; ``sum_blocks``'s device time at
     four shapes of its launches; K1 and K1w at the first and narrow
-    sweeps (``hist_rows_times``), the row histogram's main path end to end
-    (``rows_path_times``), hist_batched's build report, whether a K1w row
-    alone and a K3w ladder alone get the same bits as in company, whether
-    a rows-path answer alone equals its entry in the batch, hist_multi's
-    build report; and the outputs of K4/K4w and K1w for
-    ``compare_outputs``; K3, K3w, K3s and
+    sweeps (``hist_rows_times``), K1s and K1ws on the polished, uniform
+    and narrow ladders (``rows_sums_times``), the row histogram's main
+    path end to end (``rows_path_times``) and polished
+    (``polish_rows_times``), hist_batched's build report, whether a K1w,
+    K1s or K1ws row alone and a K3w ladder alone get the same bits as in
+    company, whether a rows-path answer alone equals its entry in the
+    batch, hist_multi's build report; and the outputs of K4/K4w, K1w and
+    K1s/K1ws for ``compare_outputs``; K3, K3w, K3s and
     K3ws at the first and narrow sweeps (``k3_sweep_times``), K3s and K3ws
     on the polished first sweep, the 16-quantile and 16 weighted-quantile
     paths 'binned' and polished with sweeps, loop and finalize
@@ -2924,10 +3178,12 @@ def compare_times(sel, cpo, obj, ref, _build) -> dict:
                                     for k, v in parts.items()},
            "k1_ms": hist_rows_times(cpo, ref, False),
            "k1w_ms": hist_rows_times(cpo, ref, True),
+           "k1_sums_ms": rows_sums_times(sel, obj, cpo, ref),
+           "polish_rows": polish_rows_times(sel, obj),
            "rows_path": rows_path_times(sel, obj),
            "hist_build": hist_batched_build(_build, cpo),
-           "k1w_row_alone_equals_batch": rows_alone_equal_batch(
-               cpo, ref, check=False),
+           "rows_alone_equal_batch": rows_alone_equal_batch(
+               cpo, ref, sel, obj, check=False),
            "k3w_ladder_alone_equals_among_16": ladders_alone_equal_among_16(
                cpo, ref, sel, obj, check=False),
            "rows_answers_alone_equal_batch": rows_answers_alone_equal_batch(
@@ -2998,6 +3254,7 @@ def compare_times(sel, cpo, obj, ref, _build) -> dict:
                 out["outputs"][f"{leg} K={k} {pset}"] = [
                     t.tolist() for t in got]
     out["outputs"].update(k1w_outputs(cpo, ref))
+    out["outputs"].update(k1_sums_outputs(cpo, ref, sel, obj))
     out["outputs"].update(k3_sums_outputs(cpo, ref))
     try:
         out["build"] = fg_multi_build(_build)
@@ -3057,7 +3314,7 @@ def compare_outputs(a: dict, b: dict) -> dict:
         # (counts, then masses): which outputs are integers
         if case.startswith("k1w "):
             ints = (0,) if "dense" in case else (0, 1)
-        elif case.startswith(("k3s ", "k3ws ")):
+        elif case.startswith(("k3s ", "k3ws ", "k1s ", "k1ws ")):
             ints = (0,) if "dense" in case else tuple(range(len(outs)))
         else:
             nsums = 2 if case.startswith("k4 ") else 4
@@ -3167,49 +3424,34 @@ def hist_multi_instance(mangled: str):
     return f"{name} {_TYPES[t]}/{w}/{g}/{leg or '-'}"
 
 
-def hist_multi_probe(src: Path, sel, cpo, ref, _build) -> dict:
-    """Build ``src`` (a copy of ``hist_multi.cu`` with clock64 phase marks)
-    with -DHIST_MULTI_PROBE, run K3 and K3w through it at 2^27 f32, K = 16
-    (dense f32 w) on the first sweep's identical ladders and the narrow
-    ones its descent step picks, and return each run's clock64 cycles per
-    phase summed over threads (and their shares), beside the kernels'
-    times in the normal build and the normal build's ptxas report."""
+def probe_build(src: Path, macro: str, _build, instance) -> tuple:
+    """Build ``src`` with ``-D<macro>`` into build/probe; returns the
+    library's path and its ptxas report (``instance`` names the
+    kernels)."""
     out_dir = ROOT / "build" / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"{src.stem}_probe.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
-                          "-DHIST_MULTI_PROBE",
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-D{macro}",
                           "-o", str(so), str(src)], capture_output=True,
                          text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"probe build failed:\n{res.stdout}{res.stderr}")
-    _build.build_all()
-    report = ptxas_report(_build.build_log.get("hist_multi", ""),
-                          hist_multi_instance)
-    probe_report = ptxas_report(res.stdout + res.stderr, hist_multi_instance)
-    x = torch.randn(N_BIG, generator=gen(151), device=DEVICE)
-    wd = dense_weights(N_BIG, 152)
-    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
-    e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
-    e1 = e1.contiguous()
-    cum = torch.cumsum(cpo.cp_histogram_multi(x, e1)[0][:, :-1], dim=-1,
-                       dtype=torch.int32)
-    yl, yr, *_ = sel.binned_descent_step(cum, e1, e1[:, 0], e1[:, -1], ks)
-    e2 = ref.bin_edges(yl, yr, 128).contiguous()
-    calls = {}
-    for sweep, e in (("first", e1), ("narrow", e2)):
-        calls[f"k3_{sweep}"] = (lambda e=e: cpo.cp_histogram_multi(x, e))
-        calls[f"k3w_{sweep}"] = (
-            lambda e=e: cpo.wcp_histogram_multi(x, wd, e))
-    out = {"ptxas": report, "probe_ptxas": probe_report, "runs": {}}
-    for key, call in calls.items():
-        out["runs"][key] = {"ms": cuda_ms(call, reps=20)}
+    return so, ptxas_report(res.stdout + res.stderr, instance)
+
+
+def probe_runs(cpo, _build, lib_name: str, so: Path, calls: dict,
+               phases) -> dict:
+    """Each call's time in the normal build, then its clock64 cycles per
+    phase (summed over threads) and their shares through the probe
+    library ``so``, which stands in for ``lib_name`` meanwhile."""
+    runs = {key: {"ms": cuda_ms(call, reps=20)} for key, call in
+            calls.items()}
     lib = ctypes.CDLL(str(so))
-    read = lib.hist_multi_probe_read
+    read = getattr(lib, f"{lib_name}_probe_read")
     read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     read.restype = ctypes.c_int
-    normal = _build._libs["hist_multi"]
-    _build._libs["hist_multi"] = lib
+    normal = _build._libs[lib_name]
+    _build._libs[lib_name] = lib
     cpo._fns.clear()
     try:
         buf = (ctypes.c_ulonglong * 8)()
@@ -3225,16 +3467,83 @@ def hist_multi_probe(src: Path, sel, cpo, ref, _build) -> dict:
             rc = read(buf, 1)
             if rc != 0:
                 raise RuntimeError(f"probe read failed: CUDA error {rc}")
-            cyc = {p: int(buf[i]) for i, p in enumerate(PROBE_PHASES)
-                   if p != "-"}
+            cyc = {p: int(buf[i]) for i, p in enumerate(phases) if p != "-"}
             tot = sum(cyc.values()) or 1
-            out["runs"][key].update(
-                probe_ms=probe_s * 1e3, cycles=cyc,
-                share={p: c / tot for p, c in cyc.items()})
+            runs[key].update(probe_ms=probe_s * 1e3, cycles=cyc,
+                             share={p: c / tot for p, c in cyc.items()})
     finally:
-        _build._libs["hist_multi"] = normal
+        _build._libs[lib_name] = normal
         cpo._fns.clear()
-    return out
+    return runs
+
+
+def hist_multi_probe(src: Path, sel, cpo, ref, _build) -> dict:
+    """Build ``src`` (a copy of ``hist_multi.cu`` with clock64 phase marks)
+    with -DHIST_MULTI_PROBE, run K3 and K3w through it at 2^27 f32, K = 16
+    (dense f32 w) on the first sweep's identical ladders and the narrow
+    ones its descent step picks, and return each run's clock64 cycles per
+    phase summed over threads (and their shares), beside the kernels'
+    times in the normal build and the normal build's ptxas report."""
+    so, probe_report = probe_build(src, "HIST_MULTI_PROBE", _build,
+                                   hist_multi_instance)
+    _build.build_all()
+    report = ptxas_report(_build.build_log.get("hist_multi", ""),
+                          hist_multi_instance)
+    x = torch.randn(N_BIG, generator=gen(151), device=DEVICE)
+    wd = dense_weights(N_BIG, 152)
+    ks = sel.ranks_from_quantiles(QS16, N_BIG).to(DEVICE)
+    e1 = ref.bin_edges(x.min(), x.max(), 128)[None, :].expand(16, -1)
+    e1 = e1.contiguous()
+    cum = torch.cumsum(cpo.cp_histogram_multi(x, e1)[0][:, :-1], dim=-1,
+                       dtype=torch.int32)
+    yl, yr, *_ = sel.binned_descent_step(cum, e1, e1[:, 0], e1[:, -1], ks)
+    e2 = ref.bin_edges(yl, yr, 128).contiguous()
+    calls = {}
+    for sweep, e in (("first", e1), ("narrow", e2)):
+        calls[f"k3_{sweep}"] = (lambda e=e: cpo.cp_histogram_multi(x, e))
+        calls[f"k3w_{sweep}"] = (
+            lambda e=e: cpo.wcp_histogram_multi(x, wd, e))
+    return {"ptxas": report, "probe_ptxas": probe_report,
+            "runs": probe_runs(cpo, _build, "hist_multi", so, calls,
+                               PROBE_PHASES)}
+
+
+# the phases of hist_batched.cu's row kernels with sums that a build with
+# -DHIST_BATCHED_PROBE times with clock64 (summed over threads): the wait
+# for a batch's loads, the end-slot compares and adds, the slot lookup
+# (guess or bucket, edge compares, searches), the in-bracket adds, the
+# block's flush, and its set-up (staging the edges, zeroing its tables,
+# building its buckets)
+ROWS_PROBE_PHASES = ("load", "ends", "lookup", "adds", "flush", "setup",
+                     "-", "-")
+
+
+def hist_batched_probe(src: Path, sel, obj, cpo, ref, _build) -> dict:
+    """Build ``src`` (``hist_batched.cu`` or a copy with the same phase
+    marks) with -DHIST_BATCHED_PROBE and run K1s and K1ws (dense f32 w)
+    through it at (1, 2^27) f32 with ``full_bracket`` on the polished and
+    the uniform first-sweep ladders (``rows_sums_ladders``): each run's
+    clock64 cycles per phase, summed over threads, and their shares,
+    beside the kernels' times in the normal build, both builds' ptxas
+    reports and ``rows_sums_times``."""
+    so, probe_report = probe_build(src, "HIST_BATCHED_PROBE", _build,
+                                   hist_batched_instance)
+    _build.build_all()
+    report = ptxas_report(_build.build_log.get("hist_batched", ""),
+                          hist_batched_instance)
+    x = torch.randn((1, N_BIG), generator=gen(161), device=DEVICE)
+    wd = dense_weights((1, N_BIG), 162)
+    calls = {}
+    for leg, w in (("k1s", None), ("k1ws", wd)):
+        ladders = rows_sums_ladders(sel, obj, ref, x, w)
+        for label in ("polished", "uniform"):
+            e = ladders[label][0]
+            calls[f"{leg}_{label}"] = (
+                lambda e=e, w=w: rows_sums_call(cpo, x, w, e, True))
+    return {"ptxas": report, "probe_ptxas": probe_report,
+            "runs": probe_runs(cpo, _build, "hist_batched", so, calls,
+                               ROWS_PROBE_PHASES),
+            "times": rows_sums_times(sel, obj, cpo, ref)}
 
 
 def main() -> None:
@@ -3247,9 +3556,12 @@ def main() -> None:
                          "DESIGN_WIDTHS instead of running the checks; "
                          "writes chiprun_out/designs.json")
     ap.add_argument("--probe", type=Path, metavar="CU",
-                    help="time hist_multi.cu's phases with clock64 in CU, a "
-                         "copy of it with phase marks (HIST_MULTI_PROBE), "
-                         "instead of running the checks; writes "
+                    help="time the phases of hist_multi.cu's kernels "
+                         "(HIST_MULTI_PROBE), or of hist_batched.cu's row "
+                         "kernels with sums when CU's name starts with "
+                         "hist_batched (HIST_BATCHED_PROBE), with clock64 "
+                         "in CU, the source or a copy with the same phase "
+                         "marks, instead of running the checks; writes "
                          "chiprun_out/probe.json")
     ap.add_argument("--times-of", type=Path, metavar="SRC",
                     help="print, as one JSON line, what --compare reads, "
@@ -3285,9 +3597,10 @@ def main() -> None:
         print(line, flush=True)
         return
     if args.probe:
-        line = json.dumps({"device": name, "smi": smi,
-                           **hist_multi_probe(args.probe, sel, cpo, ref,
-                                              _build)})
+        probe = (hist_batched_probe(args.probe, sel, obj, cpo, ref, _build)
+                 if args.probe.name.startswith("hist_batched")
+                 else hist_multi_probe(args.probe, sel, cpo, ref, _build))
+        line = json.dumps({"device": name, "smi": smi, **probe})
         out = ROOT / "chiprun_out"
         out.mkdir(parents=True, exist_ok=True)
         (out / "probe.json").write_text(line + "\n")
@@ -3357,6 +3670,7 @@ def main() -> None:
     tsb = sum_blocks_timing(cpo)
     tk1 = {"k1": hist_rows_times(cpo, ref, False),
            "k1w": hist_rows_times(cpo, ref, True)}
+    tk1s = rows_sums_times(sel, obj, cpo, ref)
     hbb = hist_batched_build(_build, cpo)
     hmb = hist_multi_build(_build, cpo)
     trs = row_sums_times(cpo, ref)
@@ -3364,6 +3678,8 @@ def main() -> None:
     log("K3/K3w build: " + json.dumps(hmb))
     log("row_sums (ms, " + name + ", " + smi + "): " + json.dumps(trs))
     log("K1/K1w sweeps (ms, " + name + ", " + smi + "): " + json.dumps(tk1))
+    log("K1s/K1ws sweeps (ms, " + name + ", " + smi + "): "
+        + json.dumps(tk1s))
     log("K1/K1w build: " + json.dumps(hbb))
     log("timings (ms, " + name + ", " + smi + "): " + json.dumps(tm))
     log("multi-k timings (ms, " + name + ", " + smi + "): "
@@ -3377,7 +3693,7 @@ def main() -> None:
     log(f"K4/K4w build (G = 16, f32): " + json.dumps(fgm))
 
     t0 = time.perf_counter()
-    s_checks = [*check_sums_rows(cpo, ref),
+    s_checks = [*check_sums_rows(cpo, ref, sel, obj),
                 *check_sums_multi(cpo, ref, sel, obj)]
     log(f"sums-leg checks took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3585,7 +3901,27 @@ def main() -> None:
                "nearest_library": "none: no call bins against given edges "
                                   "with per-slot sums"}
         if "narrow_ms" in t:
-            row["narrow_bracket_ms"] = t["narrow_ms"]
+            leg = tkey
+            row.update(
+                narrow_bracket_ms=t["narrow_ms"],
+                uniform_first_sweep_ms=t["ms"],
+                polished_first_sweep_ms=t["polished_ms"],
+                sweeps_ms={k.split("/", 1)[1]: v for k, v in tk1s.items()
+                           if k.split("/", 1)[0] == leg},
+                design="first sweeps (full_bracket) of rows of at least "
+                       "LANE_SUMS_MIN_N: lane-column f32 tables (K1ws: "
+                       "lanes l and l + 16 share a column of (mass, sum) "
+                       "pairs, two sub-steps), int counts by shared "
+                       "atomics; a slot from a 1024-bucket table (the "
+                       "bucket's lowest slot and its edges, decided by the "
+                       "realized edges), else counted by the warp from the "
+                       "edges its lanes hold; groups of 4 elements read "
+                       "16 or 8 bytes at a time where the row is aligned; "
+                       "other sweeps, shorter rows and ladders past the "
+                       "tables: the grouped rows",
+                first_sweep_design="lane_sums", narrow_sweep_design="grouped",
+                **lane_build(hbb, leg, f"lane_sums_kernel f32/f32/"
+                                       f"{1 if leg == 'k1s' else 2}"))
         else:
             n = ts[tkey.replace("first", "narrow")]
             pf = ts[tkey.replace("first", "polish_first")]

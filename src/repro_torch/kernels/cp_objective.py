@@ -41,15 +41,16 @@ rows or ladders of its launch.
 K1 has two designs and its legs with rows two, chosen by
 :func:`hist_rows_layout` from the call's shape and whether the ladder's
 bracket holds every element (``full_bracket``, the engine's first sweep):
-lane-private tables (K1 on such sweeps, K1w and K1s on such sweeps of rows
-of at least ``LANE_ROWS_MIN_N`` elements, at widths whose tables fit a
-block), a shared histogram (K1 otherwise) and grouped rows (K1w/K1s
-otherwise, and K1ws).  K3s and K3ws take the sorted-tile design on
-every ladder of which one fits a block's shared memory (up to 12255
-edges for K3s, 9650 for K3ws), and the grouped rows of
-``csrc/hist_multi.cu`` on wider ones (:func:`hist_multi_sums_layout`: a
-rule on the width and the leg, never on K, so a ladder alone and among
-others runs the same design).
+lane-private tables (K1 on such sweeps, K1w on such sweeps of rows of at
+least ``LANE_ROWS_MIN_N`` elements, at widths whose tables fit a block),
+lane-column tables with a bucket slot lookup (K1s and K1ws on such sweeps
+of rows of at least ``LANE_SUMS_MIN_N``), a shared histogram (K1
+otherwise) and grouped rows (K1w, K1s and K1ws otherwise).  K3s and K3ws
+take the sorted-tile design on every ladder of which one fits a block's
+shared memory (up to 12255 edges for K3s, 9650 for K3ws), and the grouped
+rows of ``csrc/hist_multi.cu`` on wider ones
+(:func:`hist_multi_sums_layout`: a rule on the width and the leg, never on
+K, so a ladder alone and among others runs the same design).
 
 Each wrapper checks what the kernel takes and raises on anything else,
 allocates the outputs, launches on the current stream, raises on a
@@ -100,11 +101,34 @@ LANE_MAX_PER_THREAD = 65535 - 16
 # for bit from run to run
 FG_CHUNK = 8192
 FG_MAX_BLOCKS = 1024
-# K1w/K1s take the lane-private design from this row length on, where the
+# K1w takes the lane-private design from this row length on, where the
 # fg_blocks(n) blocks stop growing in number and each bins FG_CHUNK
 # elements or more; below it the grouped design's lighter blocks read
 # faster
 LANE_ROWS_MIN_N = FG_CHUNK * FG_MAX_BLOCKS
+# K1s/K1ws, lane-column design: buckets of the slot lookup
+# (``kBuckets`` in csrc/hist_batched.cu; 16 bytes each: a slot and its
+# three edges), the edges a lane holds in registers for the warp's search
+# (``kEdgeRegs``: ladders of at most 32 times as many edges), the row
+# length from which it runs (K1w's: at (64, 2^20) the grouped design reads
+# faster, PERF.md), and the designs a caller may ask ``_hist_rows`` for by
+# name
+SUMS_BUCKETS = 1024
+SUMS_EDGE_REGS = 5
+LANE_SUMS_MIN_N = LANE_ROWS_MIN_N
+ROWS_SUMS_DESIGNS = ("lane_sums", "grouped")
+# ... its warps a block (by f32 rows per slot, 1 or 2: the most whose
+# tables fit a block at 128 bins; at most SUMS_MAX_WARPS,
+# ``kSumsMaxThreads`` in csrc/hist_batched.cu), and how its threads walk a
+# row (``kGroup``, ``SumsShape::groups``, ``kChunk``): groups of 4
+# elements, batches of 8 groups (K1s) or 4 (K1ws) while every lane of the
+# warp has one, binned 8 elements at a time, then one group at a time;
+# the order of the f32 adds follows them
+SUMS_WARPS = {1: 12, 2: 11}
+SUMS_MAX_WARPS = 12
+SUMS_GROUP = 4
+SUMS_BATCH_GROUPS = {1: 8, 2: 4}
+SUMS_CHUNK = 8
 MAX_ROWS = 65535  # grid.y limit
 # K3: a block holds a power of two of at most 16 ladders (two register
 # counters each per thread), only as many as fit in HIST_MAX_SMEM; a single
@@ -328,22 +352,42 @@ def lane_hist_smem(nedges: int, nrows: int,
                 + warps * nslots * nrows + nslots)
 
 
+def lane_sums_smem(nedges: int, nrows: int, warps: int | None = None) -> int:
+    """Shared bytes of a lane-column block of K1s (``nrows`` 1) or K1ws (2)
+    of ``warps`` warps (by default ``SUMS_WARPS[nrows]``; ``SumsLayout`` in
+    ``csrc/hist_batched.cu``): ``SUMS_BUCKETS`` buckets of 16 bytes, the
+    edges padded to a power of two above ``nedges``, per warp ``nbins``
+    rows of ``32 / nrows`` columns of ``nrows`` f32 values (two lanes share
+    a K1ws column), an int count row and ``nrows`` f32 reduction rows of
+    ``nbins + 2`` slots, and the block's ``nbins + 2`` int counts."""
+    warps = warps or SUMS_WARPS[nrows]
+    nb, nslots = nedges - 1, nedges + 1
+    pad = 1 << max(0, nedges.bit_length())
+    return 4 * (4 * SUMS_BUCKETS + pad
+                + warps * (nb * 32 + (1 + nrows) * nslots) + nslots)
+
+
 def hist_rows_layout(nedges: int, nrows: int, n: int,
-                     full_bracket: bool) -> str:
+                     full_bracket: bool, sums: bool = False) -> str:
     """K1's design for rows of ``n`` elements, a ladder of ``nedges``
-    edges and ``nrows`` f32 rows per slot (0: K1; 1: K1w, K1s; 2: K1ws):
-    ``"lane"`` when the ladder's bracket holds every element
-    (``full_bracket``: the first sweep, where every element is binned),
-    the lane-private tables (one row at most) fit a block and, with a row,
-    ``n >= LANE_ROWS_MIN_N``; else ``"shared"`` (K1) or ``"grouped"``.  On
-    a narrow sweep nearly every element lies outside the bracket and costs
-    two compares in any design; there the earlier designs, whose small
-    blocks fill an SM, read faster.  A rule on the call, never a fallback
-    on error."""
-    if (full_bracket and nedges >= 2 and nrows <= 1
-            and (nrows == 0 or n >= LANE_ROWS_MIN_N)
-            and lane_hist_smem(nedges, nrows) <= HIST_OPTIN_SMEM):
-        return "lane"
+    edges and ``nrows`` f32 rows per slot (0: K1; 1: K1w, or K1s with
+    ``sums``; 2: K1ws), on a sweep whose bracket holds every element
+    (``full_bracket``: the first, where every element is binned):
+    ``"lane"`` (K1, and K1w from ``LANE_ROWS_MIN_N``) where the
+    lane-private tables fit a block, ``"lane_sums"`` (K1s and K1ws from
+    ``LANE_SUMS_MIN_N``) where the lane-column tables fit; else
+    ``"shared"`` (K1) or ``"grouped"``.  On a narrow sweep nearly every
+    element lies outside the bracket and costs two compares in any design;
+    there the earlier designs, whose small blocks fill an SM, read faster.
+    A rule on the call, never on the batch, never a fallback on error."""
+    if full_bracket and nedges >= 2:
+        if sums or nrows == 2:
+            if (n >= LANE_SUMS_MIN_N and nedges <= 32 * SUMS_EDGE_REGS
+                    and lane_sums_smem(nedges, nrows) <= HIST_OPTIN_SMEM):
+                return "lane_sums"
+        elif ((nrows == 0 or n >= LANE_ROWS_MIN_N)
+              and lane_hist_smem(nedges, nrows) <= HIST_OPTIN_SMEM):
+            return "lane"
     return "shared" if nrows == 0 else "grouped"
 
 
@@ -762,11 +806,14 @@ def whist_multi_plan(k: int, nedges: int, nrows: int, want_sums: bool,
 
 
 def _hist_rows(x: torch.Tensor, w, edges: torch.Tensor, want_sums: bool,
-               key: str, full_bracket: bool = False):
+               key: str, full_bracket: bool = False,
+               design: str | None = None):
     """Launch the row-wise histogram leg with f32 slot rows on ``x`` (B, n)
     and ``edges`` (B, nbins+1): K1w (``w``, no sums), K1s (no ``w``, sums)
     or K1ws (``w`` and sums), in the design :func:`hist_rows_layout` picks
-    (``full_bracket``: every element lies in its row's bracket);
+    (``full_bracket``: every element lies in its row's bracket; a sums leg
+    on such a sweep may be asked for another of ``ROWS_SUMS_DESIGNS`` by
+    ``design``, to time or test both at one call);
     then reduce the per-block rows with :func:`_sum_blocks`; counts one
     launch under ``LAUNCHES[key]``.  Returns the int32
     counts (B, nbins + 2) and the f32 rows (B, R, nbins + 2): the mass or
@@ -781,8 +828,19 @@ def _hist_rows(x: torch.Tensor, w, edges: torch.Tensor, want_sums: bool,
                          f"{tuple(edges.shape)}")
     _check_side(edges, x, (rows, nedges), "edges")
     nrows = 2 if w is not None and want_sums else 1
-    lane = hist_rows_layout(nedges, nrows, n, full_bracket) == "lane"
-    warps = LANE_WARPS if lane else whist_layout(1, nedges, nrows)[1]
+    if design is None:
+        design = hist_rows_layout(nedges, nrows, n, full_bracket, want_sums)
+    elif not (want_sums and full_bracket and design in ROWS_SUMS_DESIGNS):
+        raise ValueError(f"design {design!r} is not one of "
+                         f"{ROWS_SUMS_DESIGNS} on a sums leg's first sweep")
+    if design == "lane_sums" and (nedges > 32 * SUMS_EDGE_REGS or
+                                  lane_sums_smem(nedges, nrows)
+                                  > HIST_OPTIN_SMEM):
+        raise ValueError(f"{nedges - 1} bins do not fit the lane-column "
+                         f"design's block")
+    lane = design in ("lane", "lane_sums")
+    warps = (SUMS_WARPS[nrows] if design == "lane_sums" else LANE_WARPS
+             if lane else whist_layout(1, nedges, nrows)[1])
     nblk = fg_blocks(n)
     cnt = torch.zeros((rows, nedges + 1), dtype=torch.int32, device=x.device)
     part = torch.empty((rows, nblk, nrows, nedges + 1), dtype=torch.float32,

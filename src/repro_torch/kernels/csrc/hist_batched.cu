@@ -30,20 +30,20 @@
 // are counted, and their row values summed, in per-thread registers.
 //
 // Two designs per leg, chosen by the wrapper (`cp_objective.
-// hist_rows_layout`, a rule on the call): the lane-private one where the
+// hist_rows_layout`, a rule on the call): a first-sweep one where the
 // ladder's bracket holds every element (`full_bracket`, the engine's first
-// sweep) and its tables fit a block, for K1w/K1s only on rows of at least
-// 2^23 elements; the earlier one elsewhere.  On a narrow sweep nearly every
-// element lies outside the bracket and costs two compares in any design;
-// there the earlier designs, whose small blocks fill an SM, read faster,
-// and on short rows their blocks start and finish faster.
+// sweep) and its tables fit a block, for K1w, K1s and K1ws only on rows of
+// at least 2^23 elements; the earlier one elsewhere.  On a narrow sweep
+// nearly every element lies outside the bracket and costs two compares in
+// any design; there the earlier designs, whose small blocks fill an SM,
+// read faster, and on short rows their blocks start and finish faster.
 //
-// Lane-private (K1, K1w and K1s on first sweeps, at 128 bins, the
-// engine's width on the card).  On the first sweep every element is in
-// the bracket, and the earlier design's per-element binary search and
-// shared atomics (K1) or warp-wide grouping by slot (K1w) set its pace:
+// Lane-private (K1 and K1w on first sweeps, at 128 bins, the engine's
+// width on the card).  On the first sweep every element is in the
+// bracket, and the earlier design's per-element binary search and shared
+// atomics (K1) or warp-wide grouping by slot (K1w) set its pace:
 // - each lane owns one column of its warp's [slot][32] tables: packed
-//   16-bit counts, and on K1w/K1s an f32 row.  Lane = bank, so the adds
+//   16-bit counts, and on K1w an f32 row.  Lane = bank, so the adds
 //   have no conflicts, no atomics and no warp collectives; a lane zeroes
 //   its columns before its first in-bracket element, and the block reads
 //   only the columns of lanes that had one;
@@ -54,13 +54,13 @@
 //   slots by selects, then every guess and its two edges, then the rare
 //   searches, then the adds, so that the edge loads of a batch overlap;
 // - K1 reads x in 16-byte packs (the elements before a row's first
-//   16-byte boundary and after its last whole pack one each); K1w and K1s
-//   read one element of x (and w) per load, element i of a row to thread
+//   16-byte boundary and after its last whole pack one each); K1w reads
+//   one element of x and w per load, element i of a row to thread
 //   i mod (nblk * 256), so that the order of the f32 adds is a function of
 //   n alone; each thread bins a batch while the next one loads;
 // - 16-bit counts cannot carry: the grid gives no thread more than 65535
 //   elements of a row (K1: a persistent grid of the blocks that fit on the
-//   card; K1w/K1s: fg_blocks(n) blocks of 256 threads, at most 8192);
+//   card; K1w: fg_blocks(n) blocks of 256 threads, at most 8192);
 // - f32 rows in a fixed order: a lane adds its elements in its own order;
 //   at the end, for each slot, one lane sums the warp's touched columns
 //   starting at its own (an order set by the slot), the block sums its
@@ -70,17 +70,47 @@
 //   wrapper's `sum_blocks` over fg_blocks(n) partials;
 // - counts leave through integer atomics, exact in any order.
 // At 128 bins K1 has no rows (67,080 bytes of shared memory a block of 8
-// warps, three blocks an SM), K1w and K1s one f32 row (202,312 bytes, one
-// block an SM).
+// warps, three blocks an SM), K1w one f32 row (202,312 bytes, one block an
+// SM).
+//
+// Lane columns (K1s and K1ws on first sweeps, up to 140 / 132 edges).  The
+// engine's first sweep on these legs is always polished: half its edges sit
+// geometrically around the cut, where a guess from the ladder's ends
+// misses every element.  So:
+// - a slot comes from a table of 1024 buckets uniform over the bracket,
+//   each holding the lowest slot g any of its values can take and the
+//   edges e_{g-1}, e_g, e_{g+1} (one 16-byte load); the realized edges
+//   decide, e_{g-1} < v <= e_g (g) or e_g < v <= e_{g+1} (g + 1); on any
+//   other outcome (a bucket crowded with edges, as around the polish cut)
+//   the warp counts the element's edges below it, each lane comparing it
+//   with the edges it holds in registers (a ballot and a popcount per 32
+//   edges; no dependent loads).  On randn over 99% of the elements take
+//   the bucket's answer, on uniform, polished and warm ladders alike;
+// - K1s: each lane owns an f32 column of its warp's [slot][32] table; K1ws:
+//   lanes l and l + 16 share column l of (mass, sum) pairs, adding in two
+//   sub-steps, lanes 0-15 first, each lane its elements in order; counts
+//   by integer atomics into the warp's count row;
+// - element i of a row belongs to group i / 4 and group j to thread
+//   j mod (nblk * threads): a row aligned to 16 bytes (f32; 8 for bf16) is
+//   read a group per load, another a group in four loads, the same
+//   elements in the same order, so a row's sums never depend on where it
+//   starts in a batch; a batch of groups loads while the previous one is
+//   binned, 8 elements at a time;
+// - as many warps as the tables allow at 128 bins (K1s 12, K1ws 11; one
+//   block an SM): the pace is set by latency and by the shared loads of the
+//   bucket table, whose random 16-byte reads conflict on banks;
+// - f32 rows in a fixed order, as the lane-private design's: a column's
+//   adds, the slot's columns from the slot's own on, warps in order, the
+//   end slots by a shuffle tree, then `sum_blocks`.
 //
 // Shared histogram (K1 on other sweeps, and past the lane tables' width,
 // e.g. 8192 bins): the earlier design — a binary search per in-bracket
 // element and a shared int atomic into the block's histogram, opting in
 // past 48 KB.
 //
-// Grouped rows (K1w/K1s on other sweeps and shorter rows, K1ws, whose two
-// f32 rows per slot do not fit lane tables, and past the lane tables'
-// width): the earlier design, one kernel specialized on what
+// Grouped rows (K1w, K1s and K1ws on other sweeps, shorter rows and past
+// the first-sweep tables' width): the earlier design, one kernel
+// specialized on what
 // an element adds: w, x, or the pair w and w*x.  The masses decide every
 // narrowing step and the sums place the polish cut, so both are summed in
 // an order fixed by n and the launch shape alone, never with float atomics:
@@ -105,6 +135,26 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#ifdef HIST_BATCHED_PROBE
+__device__ unsigned long long g_probe[8];
+#define PROBE_START long long probe_acc[8] = {}; long long probe_t = clock64();
+#define PROBE(i) { const long long t_ = clock64(); \
+                   probe_acc[i] += t_ - probe_t; probe_t = t_; }
+#define PROBE_WAIT(a, k) { for (int q_ = 0; q_ < (k); ++q_) \
+                             asm volatile("mov.b32 %0, %0;" : "+f"(a[q_])); }
+#define PROBE_END for (int q_ = 0; q_ < 8; ++q_) \
+    atomicAdd(&g_probe[q_], (unsigned long long)probe_acc[q_]);
+#define PROBE_PARAMS , long long (&probe_acc)[8], long long& probe_t
+#define PROBE_ARGS , probe_acc, probe_t
+#else
+#define PROBE_START
+#define PROBE(i)
+#define PROBE_WAIT(a, k)
+#define PROBE_END
+#define PROBE_PARAMS
+#define PROBE_ARGS
+#endif
 
 namespace {
 
@@ -186,7 +236,7 @@ hist_batched_kernel(const T* __restrict__ x, const float* __restrict__ edges,
 }
 
 // ---------------------------------------------------------------------------
-// Grouped rows: K1ws, and K1w / K1s where the lane tables do not run
+// Grouped rows: K1w, K1s and K1ws where the first-sweep tables do not run
 // ---------------------------------------------------------------------------
 
 // What an element adds to its slot's f32 rows besides its count: its
@@ -395,18 +445,18 @@ int launch(const void* x, const void* edges, void* cnt, long long rows,
 }
 
 // ---------------------------------------------------------------------------
-// Lane-private design: K1, and K1w / K1s at ladders whose tables fit
+// Lane-private design: K1, and K1w at ladders whose tables fit
 // ---------------------------------------------------------------------------
 
 // What a thread bins per batch while the next batch loads: K1 reads x in
-// 16-byte packs, 8 elements (two packs of f32, one of bf16); K1w and K1s
-// read x (and w) one element per load, 16 of each.
+// 16-byte packs, 8 elements (two packs of f32, one of bf16); K1w reads x
+// and w one element per load, 16 of each.
 constexpr int kBatchCount = 8;
 constexpr int kBatchRows = 16;
 
-// What an in-bracket element adds besides its count: nothing (K1), its
-// weight (K1w) or its value (K1s), to the f32 row of its slot.
-enum LaneLeg { kLaneCount = 0, kLaneMass = 1, kLaneSum = 2 };
+// What an in-bracket element adds besides its count: nothing (K1) or its
+// weight (K1w), to the f32 row of its slot.
+enum LaneLeg { kLaneCount = 0, kLaneMass = 1 };
 
 // A lane-private block's shared memory, in 4-byte words: the edges padded
 // with +inf to a power of two (`pad`); per warp an f32 table of nbins rows
@@ -549,7 +599,7 @@ __device__ __forceinline__ void lane_batch(const float* v, const float* p,
   }
 }
 
-// The block's end: counts into `c_out` (atomics), and on K1w/K1s one f32
+// The block's end: counts into `c_out` (atomics), and on K1w one f32
 // partial into `out`.  The end slots' registers meet in a shuffle tree
 // and then warps in order; for the in-bracket slots, lane l sums table
 // rows l, l + 32, ... over the warp's touched columns from column l on
@@ -692,10 +742,9 @@ lane_count_kernel(const T* __restrict__ x, const float* __restrict__ edges,
   lane_flush<false>(b, a, cnt + row * b.nslots, nullptr);
 }
 
-// K1w (kLaneMass) and K1s (kLaneSum): element i of a row belongs to thread
-// i mod (nblk * 256) of the row's blocks, which bins its elements in
-// order, 16 (and their weights) while the next 16 load.  `w` is read on
-// K1w only.
+// K1w (kLaneMass): element i of a row belongs to thread i mod (nblk * 256)
+// of the row's blocks, which bins its elements in order, 16 and their
+// weights while the next 16 load.
 template <typename T, typename W, int L>
 __global__ void __launch_bounds__(kThreads, 1)
 lane_rows_kernel(const T* __restrict__ x, const W* __restrict__ w,
@@ -752,6 +801,412 @@ lane_rows_kernel(const T* __restrict__ x, const W* __restrict__ w,
                    part + (row * gridDim.x + blockIdx.x) * b.nslots);
 }
 
+
+// ---------------------------------------------------------------------------
+// Lane-column sums: K1s and K1ws on first sweeps
+// ---------------------------------------------------------------------------
+
+// What an in-bracket element adds to its slot's f32 rows: its value (K1s,
+// one row) or its weight and w*x (K1ws, two rows, interleaved per slot).
+enum SumsLeg { kSumsX = 1, kSumsWX = 2 };
+
+// Buckets of the slot lookup: uniform over [e_0, e_nbins] (in halves, so
+// that a full-range ladder's width does not overflow), each holding the
+// lowest slot any of its values can take and that slot's edges.
+constexpr int kBuckets = 1024;
+// The most edges a ladder may have: every lane holds edges lane,
+// lane + 32, ... in registers for the warp's search.
+constexpr int kEdgeRegs = 5;
+// Elements a group (one 16-byte load of f32, 8 bytes of bf16), and
+// elements binned together (ends, lookups, adds); the most threads a
+// block.
+constexpr int kGroup = 4;
+constexpr int kChunk = 8;
+constexpr int kSumsMaxThreads = 384;
+
+// Per leg: lanes a column (K1s one: its 32 lane columns of one row fit;
+// K1ws two: 16 columns of two rows a warp) and groups a batch (loaded
+// while the previous batch is binned; K1ws's weights double its
+// registers).
+template <int L> struct SumsShape {
+  static constexpr int lanes = L == kSumsWX ? 2 : 1;
+  static constexpr int rows = L == kSumsWX ? 2 : 1;
+  static constexpr int groups = L == kSumsWX ? 4 : 8;
+};
+
+// A lane-column block's shared memory, in 4-byte words: per bucket its
+// lowest slot g and the edges e_{g-1}, e_g, e_{g+1} (16 bytes, first, so
+// that they are aligned); the edges padded with +inf to a power of two
+// above nbins + 1 (`pad`); per warp an f32 table of nbins rows of 32 /
+// rows columns of `rows` values, an int count row and `rows` f32
+// reduction rows of nbins + 2 slots; the block's int counts.
+// `cp_objective.lane_sums_smem` computes the same size.
+struct SumsLayout {
+  int pad, nb, nslots, warps, rows;
+  __host__ __device__ SumsLayout(int nedges, int warps_, int rows_)
+      : pad(1), nb(nedges - 1), nslots(nedges + 1), warps(warps_),
+        rows(rows_) {
+    while (pad < nedges + 1) pad <<= 1;
+  }
+  __host__ __device__ size_t words() const {
+    return (size_t)4 * kBuckets + pad +
+           (size_t)warps * (nb * 32 + (1 + rows) * nslots) + nslots;
+  }
+};
+
+// The bucket of v (h0 = e_0 / 2, sc = kBuckets / (e_nbins / 2 - h0)),
+// each operation rounded on its own; NaN (a degenerate ladder's 0 * inf)
+// takes bucket 0.  A monotone function of v, so the buckets of a sorted
+// ladder's edges never decrease.
+__device__ __forceinline__ int sums_bucket(float v, float h0, float sc) {
+  const float t = __fmul_rn(__fsub_rn(__fmul_rn(0.5f, v), h0), sc);
+  return min(max(__float2int_rd(t), 0), kBuckets - 1);
+}
+
+// An element's slot from its bucket's entry q = (e_{g-1}, e_g, e_{g+1},
+// g): the realized edges decide, e_{g-1} < v <= e_g gives g and
+// e_g < v <= e_{g+1} gives g + 1; anything else (a bucket that holds more
+// than one edge, or a proposal that is wrong) -1, for the warp's search.
+__device__ __forceinline__ int sums_propose(float v, const float4& q) {
+  const int g = __float_as_int(q.w);
+  if ((q.x < v) & (v <= q.y)) return g;
+  if ((q.y < v) & (v <= q.z)) return g + 1;
+  return -1;
+}
+
+template <int R>
+struct SumsAcc {  // this thread's end slots
+  int below = 0, above = 0;
+  float pbelow[R] = {}, pabove[R] = {};
+};
+
+// K elements v with row values p[k] (k < R) and their validity: end slots
+// by compares into registers (adding +0 leaves a sum that started at +0 as
+// it was); in-bracket slots by the bucket lookup, else by the warp: for
+// each element the proposal missed, the lanes compare it with the edges
+// they hold (`er`) and its slot is the count of edges below it; then its
+// count by an integer atomic into the warp's count row, and its f32 rows
+// into the lane's shared column in S sub-steps, lanes 0 .. C-1 first,
+// each lane its elements in order, so that a column's order is set by
+// the lanes' element order alone.  Every lane of the warp calls it (the
+// ballots and the sub-steps take the whole warp).
+template <int R, int S, int K>
+__device__ __forceinline__ void sums_chunk(
+    const float* v, const float (&p)[R][K], const bool (&ok)[K],
+    const float4* bk, const float (&er)[kEdgeRegs], float e0, float en,
+    float h0, float sc, float* fcol, int* whist, int lane, SumsAcc<R>& a
+    PROBE_PARAMS) {
+  constexpr int C = 32 / S;
+  bool in[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const bool lo = ok[u] & (v[u] <= e0);
+    const bool hi = ok[u] & !(v[u] <= en);  // v > e_nbins, or NaN
+    a.below += lo;
+    a.above += hi;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      a.pbelow[k] += lo ? p[k][u] : 0.f;
+      a.pabove[k] += hi ? p[k][u] : 0.f;
+    }
+    in[u] = ok[u] & !(lo | hi);
+  }
+  PROBE(1)
+  int r[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u)
+    r[u] = sums_propose(v[u], bk[sums_bucket(v[u], h0, sc)]);
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    for (unsigned miss = __ballot_sync(kFull, in[u] & (r[u] < 0)); miss;
+         miss &= miss - 1) {
+      const int src = __ffs(miss) - 1;
+      const float vs = __shfl_sync(kFull, v[u], src);
+      int c = 0;
+#pragma unroll
+      for (int k = 0; k < kEdgeRegs; ++k)
+        c += __popc(__ballot_sync(kFull, er[k] < vs));
+      if (lane == src) r[u] = c;
+    }
+  }
+  PROBE(2)
+#pragma unroll
+  for (int u = 0; u < K; ++u)
+    if (in[u]) atomicAdd(whist + r[u], 1);
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    if (S == 1 || (lane / C) == s) {
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        if (in[u]) {
+          float* m = fcol + (r[u] - 1) * 32;
+          if (R == 2) {
+            float2 t = *reinterpret_cast<float2*>(m);
+            t.x += p[0][u];
+            t.y += p[R - 1][u];
+            *reinterpret_cast<float2*>(m) = t;
+          } else {
+            *m += p[0][u];
+          }
+        }
+      }
+    }
+    if (S > 1) __syncwarp();
+  }
+  PROBE(3)
+}
+
+// Four elements of group `g` of a row as floats: one 16-byte (f32) or
+// 8-byte (bf16) load where the row is so aligned (`V`), four loads
+// otherwise, the same elements either way.
+template <bool V>
+__device__ __forceinline__ void load_group(const float* r, long long g,
+                                           float* f) {
+  if (V) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(r) + g);
+    f[0] = t.x; f[1] = t.y; f[2] = t.z; f[3] = t.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) f[j] = __ldg(r + g * kGroup + j);
+  }
+}
+template <bool V>
+__device__ __forceinline__ void load_group(const __nv_bfloat16* r,
+                                           long long g, float* f) {
+  if (V) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(r) + g);
+    f[0] = __uint_as_float(t.x << 16);
+    f[1] = __uint_as_float(t.x & 0xffff0000u);
+    f[2] = __uint_as_float(t.y << 16);
+    f[3] = __uint_as_float(t.y & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) f[j] = to_f32(r[g * kGroup + j]);
+  }
+}
+
+// The row values of K elements x with weights w: the value (K1s, w
+// unread), or the weight and w*x rounded on its own (K1ws).
+template <int R, int K>
+__device__ __forceinline__ void sums_values(const float* x, const float* w,
+                                            float (&p)[R][K]) {
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    p[0][u] = R == 1 ? x[u] : w[u];
+    if (R == 2) p[R - 1][u] = __fmul_rn(w[u], x[u]);
+  }
+}
+
+// K1s (kSumsX, w unread) and K1ws (kSumsWX) on a sweep whose bracket holds
+// every element.  Element i of a row belongs to group i / 4, and group j
+// to thread j mod (nblk * threads) of the row's blocks, which bins its
+// groups in order (a batch while the next batch loads, then one at a
+// time), so the order of every f32 add is set by n and the block's
+// threads alone, whatever the row's alignment: a row aligned to its
+// group's bytes (x, and w) is read in 16- or 8-byte loads, another in
+// single elements.
+template <typename T, typename W, int L, bool V>
+__device__ __forceinline__ void sums_rows(const T* xr, const W* wr,
+                                          const float* edges, int* cnt,
+                                          float* part, long long n,
+                                          int nedges, float* smem) {
+  constexpr int R = SumsShape<L>::rows;
+  constexpr int S = SumsShape<L>::lanes;
+  constexpr int C = 32 / S;
+  constexpr int U = SumsShape<L>::groups;
+  constexpr int B = U * kGroup;
+  PROBE_START
+  const long long row = blockIdx.y;
+  const long long ngroups = n / kGroup;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float xv[B], wv[B];
+  bool full = __all_sync(kFull, g + (U - 1) * stride < ngroups);
+  if (full) {  // the first loads fly while the block is set up
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      load_group<V>(xr, g + u * stride, xv + u * kGroup);
+      if (R == 2) load_group<V>(wr, g + u * stride, wv + u * kGroup);
+    }
+  }
+  const SumsLayout lay(nedges, blockDim.x >> 5, R);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* bk = reinterpret_cast<float4*>(smem);
+  float* e = smem + 4 * kBuckets;
+  float* ftab = e + lay.pad;                                  // [warp][nb][32]
+  int* hist = reinterpret_cast<int*>(ftab + lay.warps * lay.nb * 32);
+  float* wred = reinterpret_cast<float*>(hist + lay.warps * lay.nslots);
+  int* bh = reinterpret_cast<int*>(wred + lay.warps * R * lay.nslots);
+  for (int i = threadIdx.x; i < lay.pad; i += blockDim.x)
+    e[i] = i < nedges ? edges[row * nedges + i] : __int_as_float(0x7f800000);
+  for (int i = threadIdx.x; i < lay.nslots; i += blockDim.x) bh[i] = 0;
+  {  // this warp's tables start at zero
+    float4* z = reinterpret_cast<float4*>(ftab + warp * lay.nb * 32);
+    for (int i = lane; i < lay.nb * 8; i += 32)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = lane; i < lay.nslots; i += 32)
+      hist[warp * lay.nslots + i] = 0;
+  }
+  __syncthreads();
+  const float e0 = e[0], en = e[lay.nb];
+  const float h0 = __fmul_rn(0.5f, e0);
+  const float sc = __fdiv_rn((float)kBuckets,
+                             __fsub_rn(__fmul_rn(0.5f, en), h0));
+  // bucket b: the smallest j in [1, nb] whose edge's bucket is at least b
+  // (or nb), i.e. one more than the interior edges of lower buckets; edge
+  // j fills the buckets above e_{j-1}'s up to its own (every entry first
+  // holds slot 1, so that each stays a slot and its own edges whatever
+  // the ladder)
+  for (int b = threadIdx.x; b < kBuckets; b += blockDim.x)
+    bk[b] = make_float4(e[0], e[1], e[2], __int_as_float(1));
+  __syncthreads();
+  for (int j = threadIdx.x + 1; j <= lay.nb; j += blockDim.x) {
+    const int lo = j == 1 ? 0 : sums_bucket(e[j - 1], h0, sc) + 1;
+    const int hi = j == lay.nb ? kBuckets - 1 : sums_bucket(e[j], h0, sc);
+    const float4 q = make_float4(e[j - 1], e[j], e[j + 1], __int_as_float(j));
+    for (int b = lo; b <= hi; ++b) bk[b] = q;
+  }
+  __syncthreads();
+  PROBE(5)
+  float* fcol = ftab + warp * lay.nb * 32 + (lane % C) * R;
+  int* whist = hist + warp * lay.nslots;
+  float er[kEdgeRegs];  // edges lane, lane + 32, ... (+inf past the last)
+#pragma unroll
+  for (int k = 0; k < kEdgeRegs; ++k)
+    er[k] = lane + 32 * k < nedges ? e[lane + 32 * k]
+                                   : __int_as_float(0x7f800000);
+  SumsAcc<R> a;
+  while (full) {
+    const long long next = g + U * stride;
+    const bool more = __all_sync(kFull, next + (U - 1) * stride < ngroups);
+    float nx[B], nw[B];
+    if (more) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        load_group<V>(xr, next + u * stride, nx + u * kGroup);
+        if (R == 2) load_group<V>(wr, next + u * stride, nw + u * kGroup);
+      }
+    }
+    PROBE_WAIT(xv, B)
+    if (R == 2) {
+      PROBE_WAIT(wv, B)
+    }
+    PROBE(0)
+#pragma unroll
+    for (int c0 = 0; c0 < B; c0 += kChunk) {
+      float p[R][kChunk];
+      bool ok[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) ok[u] = true;
+      sums_values<R, kChunk>(xv + c0, wv + c0, p);
+      sums_chunk<R, S, kChunk>(xv + c0, p, ok, bk, er, e0, en, h0, sc, fcol,
+                               whist, lane, a PROBE_ARGS);
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      xv[u] = nx[u];
+      if (R == 2) wv[u] = nw[u];
+    }
+    g = next;
+    full = more;
+  }
+  // the rest, a group at a time: whole groups, and the last, partial one
+  // (its elements past n absent), in order
+  for (; __any_sync(kFull, g * kGroup < n); g += stride) {
+    float v[kGroup], wg[kGroup], p[R][kGroup];
+    bool ok[kGroup];
+    if ((g + 1) * kGroup <= n) {
+      load_group<V>(xr, g, v);
+      if (R == 2) load_group<V>(wr, g, wg);
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) ok[u] = true;
+    } else {
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const long long i = g * kGroup + u;
+        ok[u] = i < n;
+        v[u] = ok[u] ? to_f32(xr[i]) : 0.f;
+        wg[u] = R == 2 && ok[u] ? to_f32(wr[i]) : 0.f;
+      }
+    }
+    sums_values<R, kGroup>(v, wg, p);
+    sums_chunk<R, S, kGroup>(v, p, ok, bk, er, e0, en, h0, sc, fcol, whist,
+                             lane, a PROBE_ARGS);
+  }
+
+  // the block's end: end slots by a shuffle tree, then warps in order; an
+  // in-bracket slot r + 1 summed over the warp's C columns from column
+  // r mod C on (an order set by the slot alone), then warps in order; the
+  // counts by integer atomics
+  __syncwarp();
+  const int below = warp_sum(a.below), above = warp_sum(a.above);
+  const int last = lay.nslots - 1;
+  float* wr_red = wred + warp * R * lay.nslots;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const float pb = warp_sum(a.pbelow[k]), pa = warp_sum(a.pabove[k]);
+    if (lane == 0) {
+      wr_red[k * lay.nslots] = pb;
+      wr_red[k * lay.nslots + last] = pa;
+    }
+  }
+  if (lane == 0) {
+    if (below) atomicAdd(&bh[0], below);
+    if (above) atomicAdd(&bh[last], above);
+  }
+  const float* wtab = ftab + warp * lay.nb * 32;
+  for (int r = lane; r < lay.nb; r += 32) {
+    float m[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) m[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int col = (r + j) % C;
+#pragma unroll
+      for (int k = 0; k < R; ++k) m[k] += wtab[r * 32 + col * R + k];
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) wr_red[k * lay.nslots + r + 1] = m[k];
+    const int c = whist[r + 1];
+    if (c) atomicAdd(&bh[r + 1], c);
+  }
+  __syncthreads();
+  float* out = part + (row * gridDim.x + blockIdx.x) * R * lay.nslots;
+  int* c_out = cnt + row * lay.nslots;
+  for (int s = threadIdx.x; s < lay.nslots; s += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float m = 0.f;
+      for (int wp = 0; wp < lay.warps; ++wp)
+        m += wred[(wp * R + k) * lay.nslots + s];
+      out[k * lay.nslots + s] = m;
+    }
+    if (bh[s]) atomicAdd(&c_out[s], bh[s]);
+  }
+  PROBE(4)
+  PROBE_END
+}
+
+// The lane-column kernel: the row's alignment picks the load width.
+template <typename T, typename W, int L>
+__global__ void __launch_bounds__(kSumsMaxThreads, 1)
+lane_sums_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                 const float* __restrict__ edges, int* __restrict__ cnt,
+                 float* __restrict__ part, long long n, int nedges) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const long long row = blockIdx.y;
+  const T* xr = x + row * n;
+  const W* wr = L == kSumsWX ? w + row * n : nullptr;
+  const bool vec =
+      ((size_t)xr % (kGroup * sizeof(T)) == 0) &&
+      (L != kSumsWX || (size_t)wr % (kGroup * sizeof(W)) == 0);
+  if (vec)
+    sums_rows<T, W, L, true>(xr, wr, edges, cnt, part, n, nedges, smem);
+  else
+    sums_rows<T, W, L, false>(xr, wr, edges, cnt, part, n, nedges, smem);
+}
+
 template <typename T>
 int lane_count_launch(const void* x, const void* edges, void* cnt,
                       long long rows, long long n, int nedges,
@@ -776,6 +1231,29 @@ int lane_rows_launch(const void* x, const void* w, const void* edges,
                      int nedges, int nblk, int warps, void* stream) {
   const size_t smem = LaneLayout(nedges, warps, true).words() * 4;
   const auto kernel = lane_rows_kernel<T, W, L>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)nblk, (unsigned)rows);
+  kernel<<<grid, warps * 32, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w),
+      static_cast<const float*>(edges), static_cast<int*>(cnt),
+      static_cast<float*>(part), n, nedges);
+  return (int)cudaGetLastError();
+}
+
+
+template <typename T, typename W, int L>
+int lane_sums_launch(const void* x, const void* w, const void* edges,
+                     void* cnt, void* part, long long rows, long long n,
+                     int nedges, int nblk, int warps, void* stream) {
+  if (nedges < 2 || nedges > 32 * kEdgeRegs || warps * 32 > kSumsMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      SumsLayout(nedges, warps, SumsShape<L>::rows).words() * 4;
+  const auto kernel = lane_sums_kernel<T, W, L>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -879,7 +1357,7 @@ extern "C" int lane_hist_batched_bf16(const void* x, const void* edges,
                                           blocks_per_row, stream);
 }
 
-// K1w and K1s: as whist_batched_* and shist_batched_*.
+// K1w: as whist_batched_*.
 #define LANE_WHIST_BATCHED(XN, XT, WN, WT)                                   \
   extern "C" int lane_whist_batched_##XN##_##WN(                             \
       const void* x, const void* w, const void* edges, void* cnt,            \
@@ -894,26 +1372,42 @@ LANE_WHIST_BATCHED(f32, float, bf16, __nv_bfloat16)
 LANE_WHIST_BATCHED(bf16, __nv_bfloat16, f32, float)
 LANE_WHIST_BATCHED(bf16, __nv_bfloat16, bf16, __nv_bfloat16)
 
+// Lane-column design (K1s, K1ws on sweeps whose bracket holds every
+// element): as shist_batched_* and wshist_batched_*, 8 warps a block.
 extern "C" int lane_shist_batched_f32(const void* x, const void* edges,
                                       void* cnt, void* sums, long long rows,
                                       long long n, int nedges, int nblk,
                                       int warps, void* stream) {
-  return lane_rows_launch<float, float, kLaneSum>(x, nullptr, edges, cnt,
-                                                  sums, rows, n, nedges, nblk,
-                                                  warps, stream);
+  return lane_sums_launch<float, float, kSumsX>(x, nullptr, edges, cnt, sums,
+                                                rows, n, nedges, nblk, warps,
+                                                stream);
 }
 
 extern "C" int lane_shist_batched_bf16(const void* x, const void* edges,
                                        void* cnt, void* sums, long long rows,
                                        long long n, int nedges, int nblk,
                                        int warps, void* stream) {
-  return lane_rows_launch<__nv_bfloat16, float, kLaneSum>(
+  return lane_sums_launch<__nv_bfloat16, float, kSumsX>(
       x, nullptr, edges, cnt, sums, rows, n, nedges, nblk, warps, stream);
 }
 
+#define LANE_WSHIST_BATCHED(XN, XT, WN, WT)                                  \
+  extern "C" int lane_wshist_batched_##XN##_##WN(                            \
+      const void* x, const void* w, const void* edges, void* cnt,            \
+      void* part, long long rows, long long n, int nedges, int nblk,         \
+      int warps, void* stream) {                                             \
+    return lane_sums_launch<XT, WT, kSumsWX>(x, w, edges, cnt, part, rows,   \
+                                             n, nedges, nblk, warps,         \
+                                             stream);                        \
+  }
+LANE_WSHIST_BATCHED(f32, float, f32, float)
+LANE_WSHIST_BATCHED(f32, float, bf16, __nv_bfloat16)
+LANE_WSHIST_BATCHED(bf16, __nv_bfloat16, f32, float)
+LANE_WSHIST_BATCHED(bf16, __nv_bfloat16, bf16, __nv_bfloat16)
+
 // Blocks of `warps` warps per SM of the f32 lane-private kernel of `leg`
-// (0 K1, 1 K1w, 2 K1s) at `nedges` edges, with its shared memory, into
-// *out.  Returns the first non-zero CUDA error code, else 0.
+// (0 K1, 1 K1w, 2 K1s, 3 K1ws) at `nedges` edges, with its shared memory,
+// into *out.  Returns the first non-zero CUDA error code, else 0.
 template <typename K>
 int blocks_per_sm(K kernel, size_t smem, int warps, int* out) {
   if (smem > 48 * 1024) {
@@ -927,14 +1421,34 @@ int blocks_per_sm(K kernel, size_t smem, int warps, int* out) {
 
 extern "C" int lane_hist_blocks_per_sm(int leg, int nedges, int warps,
                                        int* out) {
+  if (leg >= 2) {  // the lane-column kernels of K1s and K1ws
+    const size_t smem =
+        SumsLayout(nedges, warps, leg == 3 ? 2 : 1).words() * 4;
+    if (leg == 3)
+      return blocks_per_sm(lane_sums_kernel<float, float, kSumsWX>, smem,
+                           warps, out);
+    return blocks_per_sm(lane_sums_kernel<float, float, kSumsX>, smem, warps,
+                         out);
+  }
   const size_t smem = LaneLayout(nedges, warps, leg != kLaneCount).words() * 4;
   if (leg == kLaneCount)
     return blocks_per_sm(lane_count_kernel<float>, smem, warps, out);
-  return blocks_per_sm(leg == kLaneMass
-                           ? lane_rows_kernel<float, float, kLaneMass>
-                           : lane_rows_kernel<float, float, kLaneSum>,
-                       smem, warps, out);
+  return blocks_per_sm(lane_rows_kernel<float, float, kLaneMass>, smem, warps,
+                       out);
 }
+
+#ifdef HIST_BATCHED_PROBE
+// The probe's phase cycles, summed over threads since the last reset
+// (after a device synchronize); `reset` zeroes them.
+extern "C" int hist_batched_probe_read(unsigned long long* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemcpyFromSymbol(out, g_probe, sizeof(unsigned long long) * 8);
+  if (err != cudaSuccess || !reset) return (int)err;
+  const unsigned long long zero[8] = {};
+  return (int)cudaMemcpyToSymbol(g_probe, zero, sizeof(zero));
+}
+#endif
 
 extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

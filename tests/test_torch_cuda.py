@@ -941,20 +941,24 @@ def test_row_sums_equal_plain_and_ignore_the_batch(cuda, xdt, wdt):
             assert torch.equal(_bits(one), _bits(got[r:r + 1]))
 
 
-@pytest.mark.parametrize("leg", ["weighted dense", "counting cp"])
+@pytest.mark.parametrize("leg", ["weighted dense", "counting cp",
+                                 "weighted dense polish"])
 def test_rows_answers_ignore_the_batch(cuda, leg):
     """Every SelectResult field of a row alone, and of the rows permuted,
-    equals its entry in the batch, bit for bit: with dense weights, and on
-    the counting leg's cp method, whose first pivot follows the row's
-    mean."""
+    equals its entry in the batch, bit for bit: with dense weights ('binned'
+    and 'binned_polish', whose first sweep runs K1ws), and on the counting
+    leg's cp method, whose first pivot follows the row's mean."""
     g = torch.Generator(device=cuda).manual_seed(23)
     x = torch.randn((16, 1 << 18), generator=g, device=cuda)
     w = torch.rand((16, 1 << 18), generator=g, device=cuda) + 0.5
     wks = torch.rand(16, generator=g, device=cuda) * w.sum(dim=1)
     ks = torch.randint(1, (1 << 18) + 1, (16,), generator=g, device=cuda)
-    if leg == "weighted dense":
+    if leg.startswith("weighted dense"):
+        method = "binned_polish" if leg.endswith("polish") else None
+
         def run(r):
-            return selection.weighted_select_rows(x[r], w[r], wks[r])
+            return selection.weighted_select_rows(x[r], w[r], wks[r],
+                                                  method=method)
     else:
         def run(r):
             return selection.select_rows(x[r], ks[r], method="cp")
@@ -966,3 +970,136 @@ def test_rows_answers_ignore_the_batch(cuda, leg):
     for r in range(16):
         for a, b in zip(run(every[r:r + 1]), batch):
             assert torch.equal(_bits(a), _bits(b[r:r + 1]))
+
+
+# ---------------------------------------------------------------------------
+# K1s and K1ws: the lane-column design on first sweeps (bucket lookup)
+# ---------------------------------------------------------------------------
+
+
+def _rows_ladders(x, w, device):
+    """The first-sweep ladders of K1s (K1ws with ``w``) on ``x`` (B, n):
+    the engine's polished one (``polish_edges`` around each row's seed
+    cut), the uniform one over each row's finite range, and a warm tick's
+    ``prior_edges`` one (from a cold answer on the same rows), all made
+    from ``x`` with its non-finite values set to 0."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    rows, n = x.shape
+    k = (torch.full((rows,), (n + 1) // 2, device=device) if w is None
+         else 0.5 * w.sum(dim=1))
+    ev = objective.RowsEvaluator(x, k, **({} if w is None
+                                          else {"weights": w}))
+    s0, xmin, xmax, kk, _, xmean = selection._seed_state(ev)
+    cut = selection._seed_cut(ev, kk, xmin, xmax, xmean)
+    bad = ~torch.isfinite(cut) | (cut <= s0.yL) | (cut >= s0.yR)
+    tp = torch.where(bad, 0.5 * (s0.yL + s0.yR), cut)
+    cold = selection.select_rows(x, torch.full((rows,), (n + 1) // 2,
+                                               device=device))
+    pb = selection._prior_to(selection.as_prior(cold), torch.float32, s0.yL)
+    return {"polished": selection.polish_edges(s0.yL, s0.yR, tp,
+                                               128).contiguous(),
+            "uniform": _first_sweep_edges(x, 128),
+            "prior": selection.prior_edges(s0.yL, s0.yR, pb,
+                                           128).contiguous()}
+
+
+def _sums_call(leg, x, w, edges, design):
+    key = ("cp" if leg == "K1s" else "wcp") + "_histogram_batched_sums"
+    return cp_objective._hist_rows(x, None if leg == "K1s" else w, edges,
+                                   True, key, True, design=design)
+
+
+def _sums_plain(leg, x, w, edges):
+    if leg == "K1s":
+        cnt, s = ref.cp_histogram_batched_ref(x, edges, want_sums=True)
+        return cnt, s[:, None]
+    cnt, m, s = ref.wcp_histogram_batched_ref(x, w, edges, want_sums=True)
+    return cnt, torch.stack([m, s], dim=1)
+
+
+@pytest.mark.parametrize("leg", ["K1s", "K1ws"])
+@pytest.mark.parametrize("xdt,wdt", WDTYPES)
+def test_lane_sums_equal_plain_on_integers(cuda, leg, xdt, wdt):
+    """K1s and K1ws in the lane-column design, on integer data with ±inf,
+    NaN and ±0 at an odd n, against polished, uniform and prior ladders
+    (and the engine's layout picks it there): counts, masses and sums bit
+    for bit, as the grouped design's; at 8192 bins the grouped design,
+    bit for bit too."""
+    if leg == "K1s" and wdt != torch.float32:
+        pytest.skip("K1s reads no w")
+    n = cp_objective.LANE_SUMS_MIN_N + 3
+    g = torch.Generator(device=cuda).manual_seed(31)
+    # -4..4 at density 1/16 (a slot's sum of |w*x| stays below 2^24)
+    x = (torch.randint(-4, 5, (2, n), generator=g, device=cuda).float()
+         * (torch.rand((2, n), generator=g, device=cuda) < 1 / 16))
+    x[:, :5] = torch.tensor([np.inf, -np.inf, np.nan, -0.0, 0.0],
+                            device=cuda)
+    w = _int_weights((2, n), 32, cuda)
+    nrows = 1 if leg == "K1s" else 2
+    for label, edges in _rows_ladders(x, w if leg == "K1ws" else None,
+                                      cuda).items():
+        assert cp_objective.hist_rows_layout(129, nrows, n, True,
+                                             sums=True) == "lane_sums"
+        xq, wq = x.to(xdt), w.to(wdt)
+        want = _sums_plain(leg, xq, wq, edges)
+        for design in cp_objective.ROWS_SUMS_DESIGNS:
+            cnt, rows = _sums_call(leg, xq, wq, edges, design)
+            assert torch.equal(cnt, want[0]), (label, design)
+            torch.testing.assert_close(rows, want[1], rtol=0, atol=0,
+                                       equal_nan=True)
+    wide = _first_sweep_edges(x, 8192)
+    assert cp_objective.hist_rows_layout(8193, nrows, n, True,
+                                         sums=True) == "grouped"
+    got = (cp_objective.cp_histogram_batched(x, wide, want_sums=True,
+                                             full_bracket=True)
+           if leg == "K1s" else
+           cp_objective.wcp_histogram_batched(x, w, wide, want_sums=True,
+                                              full_bracket=True))
+    want = _sums_plain(leg, x, w, wide)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(torch.stack(got[1:], dim=1), want[1],
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("leg", ["K1s", "K1ws"])
+def test_lane_sums_ignore_the_batch_and_the_alignment(cuda, leg):
+    """K1s and K1ws in the lane-column design at 1024 block partials (an
+    odd n) with dense weights: each of 16 rows alone, the 16 permuted, and
+    a row read from an address off its 16-byte boundary give their
+    entries' counts and f32 rows bit for bit; two launches identical;
+    randn sums within the f32 chain of the f64 sums."""
+    n = (1 << 23) + 3
+    g = torch.Generator(device=cuda).manual_seed(33)
+    x = torch.randn((16, n), generator=g, device=cuda)
+    w = torch.rand((16, n), generator=g, device=cuda) + 0.5
+    edges = _rows_ladders(x, w if leg == "K1ws" else None,
+                          cuda)["polished"]
+    cnt, rows = _sums_call(leg, x, w, edges, "lane_sums")
+    again = _sums_call(leg, x, w, edges, "lane_sums")
+    assert torch.equal(cnt, again[0])
+    assert torch.equal(_bits(rows), _bits(again[1]))
+    perm = torch.randperm(16, generator=g, device=cuda)
+    cp, rp = _sums_call(leg, x[perm].contiguous(), w[perm].contiguous(),
+                        edges[perm].contiguous(), "lane_sums")
+    assert torch.equal(cnt[perm], cp)
+    assert torch.equal(_bits(rows[perm]), _bits(rp))
+    for r in range(16):
+        c1, r1 = _sums_call(leg, x[r:r + 1], w[r:r + 1], edges[r:r + 1],
+                            "lane_sums")
+        assert torch.equal(cnt[r:r + 1], c1)
+        assert torch.equal(_bits(rows[r:r + 1]), _bits(r1))
+    for off in (1, 3):  # row 0 starting 4 or 12 bytes past a boundary
+        xb = torch.empty(n + off, device=cuda)[off:].view(1, n)
+        wb = torch.empty(n + off, device=cuda)[off:].view(1, n)
+        xb.copy_(x[:1])
+        wb.copy_(w[:1])
+        c1, r1 = _sums_call(leg, xb, wb, edges[:1], "lane_sums")
+        assert torch.equal(cnt[:1], c1)
+        assert torch.equal(_bits(rows[:1]), _bits(r1))
+    wd = w.double() if leg == "K1ws" else torch.ones_like(x).double()
+    exact = ref.wcp_histogram_batched_ref(x.double(), wd, edges)[2]
+    scale = ref.wcp_histogram_batched_ref(x.double(),
+                                          wd * torch.sign(x.double()),
+                                          edges)[2]
+    bound = _f32_chain(n) * 2.0 ** -24 * scale
+    assert bool(((rows[:, -1].double() - exact).abs() <= bound).all())

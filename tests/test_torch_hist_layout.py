@@ -58,11 +58,16 @@ def test_lane_smem_is_the_kernel_layout(nedges, rows):
 
 def test_lane_smem_at_128_bins():
     """The engine's 128 bins: K1's block fits three times in an SM's
-    shared memory, K1w's and K1s's once."""
+    shared memory, K1w's once, and K1s's and K1ws's lane-column blocks
+    (12 and 11 warps) once."""
     assert cpo.lane_hist_smem(129, 0) == 67_080
     assert cpo.lane_hist_smem(129, 1) == 202_312
+    assert cpo.lane_sums_smem(129, 1) == 227_016
+    assert cpo.lane_sums_smem(129, 2) == 215_312
     assert cpo.blocks_per_sm(cpo.lane_hist_smem(129, 0)) == 3
     assert cpo.blocks_per_sm(cpo.lane_hist_smem(129, 1)) == 1
+    assert cpo.blocks_per_sm(cpo.lane_sums_smem(129, 1)) == 1
+    assert cpo.blocks_per_sm(cpo.lane_sums_smem(129, 2)) == 1
     assert cpo.blocks_per_sm((2 * 129 + 1) * 4) == cpo.HIST_BLOCKS_PER_SM
 
 
@@ -74,15 +79,32 @@ BIG = 1 << 27
     (129, 0, BIG, False, "shared"), (129, 1, BIG, True, "lane"),
     (129, 1, BIG, False, "grouped"), (129, 1, 1 << 20, True, "grouped"),
     (129, 1, (1 << 23) - 1, True, "grouped"), (129, 1, 1 << 23, True, "lane"),
-    (129, 2, BIG, True, "grouped"), (17, 0, BIG, True, "lane"),
+    (129, 2, BIG, True, "lane_sums"), (17, 0, BIG, True, "lane"),
     (17, 1, BIG, True, "lane"), (8193, 0, BIG, True, "shared"),
     (8193, 1, BIG, True, "grouped"), (8193, 2, BIG, True, "grouped"),
-    (1, 0, BIG, True, "shared"), (1, 1, BIG, True, "grouped")])
+    (1, 0, BIG, True, "shared"), (1, 1, BIG, True, "grouped"),
+    # K1ws (two f32 rows per slot): the lane-column design
+    (129, 2, BIG, False, "grouped"), (17, 2, BIG, True, "lane_sums"),
+    (129, 2, cpo.LANE_SUMS_MIN_N, True, "lane_sums"),
+    (129, 2, cpo.LANE_SUMS_MIN_N - 1, True, "grouped"),
+    (1, 2, BIG, True, "grouped")])
 def test_layout_by_call(nedges, nrows, n, full, design):
     """The lane-private design takes the sweeps whose bracket holds every
-    element, at widths whose tables fit; with f32 rows only from
-    LANE_ROWS_MIN_N elements a row."""
+    element, at widths whose tables fit; K1w only from LANE_ROWS_MIN_N
+    elements a row; K1ws's lane-column design from LANE_SUMS_MIN_N."""
     assert cpo.hist_rows_layout(nedges, nrows, n, full) == design
+
+
+@pytest.mark.parametrize("nedges,n,full,design", [
+    (129, BIG, True, "lane_sums"), (129, BIG, False, "grouped"),
+    (129, cpo.LANE_SUMS_MIN_N, True, "lane_sums"),
+    (129, cpo.LANE_SUMS_MIN_N - 1, True, "grouped"),
+    (17, BIG, True, "lane_sums"), (8193, BIG, True, "grouped"),
+    (1, BIG, True, "grouped")])
+def test_sums_layout_by_call(nedges, n, full, design):
+    """K1s (one f32 row, ``sums``) takes the lane-column design on the same
+    calls as K1ws, never K1w's lane-private one."""
+    assert cpo.hist_rows_layout(nedges, 1, n, full, sums=True) == design
 
 
 @pytest.mark.parametrize("nrows", [0, 1])
