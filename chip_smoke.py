@@ -151,7 +151,38 @@ Phases (any failure raises and the script exits non-zero):
    with loop and finalize; one warm tracker tick against a cold median on
    the same tick's data, each with a stats / loop / finalize breakdown;
    the build report of ``hist_multi_sums.cu`` (registers, spills, shared
-   bytes, blocks per SM).
+   bytes, blocks per SM);
+15. segmented selection at full size, plain torch on the card (no kernel
+   may launch; counts read from zero around each run):
+   ``segmented_quantiles`` of |g| at q = 0.99 and 0.5, auto and
+   'binned_polish', over the 14 leaves of two phi3-mini decoder layers'
+   gradients (``phi3_grads``, 226,504,704 f32), each threshold against
+   ``torch.sort`` of its leaf; ``segmented_order_statistic`` on 2^27
+   elements in 16 interleaved segments against a per-segment sort, each
+   segment alone equal to its entry among the 16 in every field and two
+   runs the same bits; the auto cp leg at 50,000 elements in 8 segments;
+16. the robust consumers at full size (only the rows kernels K1, K1w, K2,
+   K2w and their sums legs may launch, with ``row_sums`` and
+   ``sum_blocks``): ``lts_fit`` on (2^20, 8) with 30% outliers, 64
+   starts, 10 steps, warm and cold the same bits, the objective within
+   1e-5 of the f64 sum of the h smallest r^2 by sort, the truth
+   recovered; ``lms_fit`` with 256 starts, its objective the sorted median
+   of the best start's r^2 bit for bit; ``knn_predict`` on (2^20, 16)
+   integer coordinates with 256 queries, k = 32, each cutoff the row's
+   sorted k-th distance and the predictions those of a ``torch.topk``
+   twin; ``irls_fit`` on (2^24, 8), Huber and Tukey, 30 iterations, warm
+   against cold, each final scale inside the mass interval of its last
+   weighted median; ``theil_sen_fit`` at 2^20 with 2^27 pairs (128
+   offsets), 'sen' and 'uniform', the slope inside the mass interval and
+   the intercept against a sort; ``clip_by_quantile`` per leaf (against a
+   sort of each leaf) and global (its rank within 1e-3 of q), and
+   ``hist_quantile`` within a bin, on the phase-15 pytree;
+17. timings: each fit end to end and the ms of its selections, against a
+   twin that replaces each selection with ``torch.sort`` /
+   ``torch.topk`` / sort + cumsum + searchsorted (the port never calls
+   them); the segmented solve at 2^27 x 16 (layout, stats, one sweep,
+   loop, finalize) against the bound of one read of x and seg.  Phases
+   15-17's record is also written to chiprun_out/robust.json.
 
 Every pass with f32 block partials (K2, K4, and the histogram legs with
 rows: K1w, K1s, K1ws, K3w, K3s, K3ws) sums them with one ``sum_blocks``
@@ -180,6 +211,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -3546,6 +3578,576 @@ def hist_batched_probe(src: Path, sel, obj, cpo, ref, _build) -> dict:
             "times": rows_sums_times(sel, obj, cpo, ref)}
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-17: segmented selection and the robust consumers
+# ---------------------------------------------------------------------------
+
+# Two phi3-mini decoder layers' gradients (src/repro/configs/phi3_mini.py:
+# d_model 3072, d_ff 8192, 32 heads x 96): per layer the fused qkv and the
+# output projection, the gate, up and down projections and two norms, 14
+# leaves and 226,504,704 f32 (906 MB) in all
+PHI3_LAYER = (("attn", "qkv", (3072, 9216)), ("attn", "o", (3072, 3072)),
+              ("mlp", "gate", (3072, 8192)), ("mlp", "up", (3072, 8192)),
+              ("mlp", "down", (8192, 3072)), ("ln1", None, (3072,)),
+              ("ln2", None, (3072,)))
+PHI3_LAYERS = 2
+SEG_N, SEG_K = N_BIG, 16            # interleaved segments of one array
+SEG_CP_N, SEG_CP_K = N_SMALL, 8     # the auto cp leg
+FIT_N, FIT_P = 1 << 20, 8           # lts_fit / lms_fit
+LTS_STARTS, LTS_STEPS, LMS_STARTS = 64, 10, 256
+IRLS_N, IRLS_ITERS = 1 << 24, 30
+KNN_N, KNN_D, KNN_Q, KNN_K = 1 << 20, 16, 256, 32
+TS_N, TS_PAIRS = 1 << 20, 1 << 27   # 128 cyclic offsets
+# the robust fits run the rows and weighted rows kernels only (and their
+# sums legs under polish), with their block and row sums
+ROBUST_KERNELS = {"cp_histogram_batched", "cp_partials_batched",
+                  "wcp_histogram_batched", "wcp_partials_batched",
+                  "cp_histogram_batched_sums", "wcp_histogram_batched_sums",
+                  "row_sums", "sum_blocks"}
+
+
+def phi3_grads(seed: int = 151):
+    """Seeded randn gradients of ``PHI3_LAYERS`` phi3-mini decoder layers,
+    each leaf at its own scale (1e-4 .. 1) with 16 planted coordinates
+    1e3 times its scale (exploding coordinates, the clip's reason)."""
+    g = gen(seed)
+    layers = []
+    for li in range(PHI3_LAYERS):
+        layer = {}
+        for i, (block, name, shape) in enumerate(PHI3_LAYER):
+            scale = 10.0 ** -((li + i) % 5)
+            t = torch.randn(shape, generator=g, device=DEVICE) * scale
+            flat = t.view(-1)
+            pos = torch.randint(0, flat.numel(), (16,), generator=g,
+                                device=DEVICE)
+            flat[pos] = scale * 1e3 * (torch.rand(16, generator=g,
+                                                  device=DEVICE) - 0.5)
+            if name is None:
+                layer[block] = t
+            else:
+                layer.setdefault(block, {})[name] = t
+        layers.append(layer)
+    return {"layers": layers}
+
+
+def no_launches(cpo, label: str) -> None:
+    moved = {k: v for k, v in cpo.LAUNCHES.items() if v}
+    if moved:
+        raise AssertionError(f"{label}: plain-torch segmented selection "
+                             f"launched {moved}")
+
+
+def segment_oracle(x, seg, ks, nsegs: int) -> torch.Tensor:
+    """Each segment's k-th value by sorting: a stable sort by value, then
+    a stable sort by segment, indexed at the segment's start + k - 1."""
+    xs, vo = torch.sort(x, stable=True)
+    so = torch.sort(seg[vo], stable=True).indices
+    counts = torch.bincount(seg.long(), minlength=nsegs)
+    start = torch.cumsum(counts, 0) - counts
+    return xs[so][start + ks.long() - 1]
+
+
+def check_status(sel, label, res) -> None:
+    if bool((res.status == sel.NOT_CONVERGED).any()):
+        raise AssertionError(f"{label}: NOT_CONVERGED")
+
+
+def segmented_path(sel, cpo, rob, tree) -> dict:
+    """Phase 15: segmented selection at full size, plain torch on the card
+    (no kernel may launch; counts read from zero around each run), each
+    value against a sort."""
+    out = {}
+    # per-leaf thresholds of |g| at q = 0.99 and 0.5, as the per-leaf clip
+    # forms them: the leaves concatenated with sorted segment ids
+    leaves = rob._tree_flatten(tree)[0]
+    sizes = [leaf.numel() for leaf in leaves]
+    x = torch.cat([leaf.abs().reshape(-1) for leaf in leaves])
+    seg = torch.repeat_interleave(
+        torch.arange(len(sizes), dtype=torch.int32, device=DEVICE),
+        torch.tensor(sizes, device=DEVICE))
+    qs = (0.99, 0.5)
+    want = {q: [] for q in qs}
+    for leaf, size in zip(leaves, sizes):
+        s = torch.sort(leaf.abs().reshape(-1)).values
+        for q in qs:
+            want[q].append(s[int(np.clip(np.ceil(q * size), 1, size)) - 1])
+    want = {q: torch.stack(v) for q, v in want.items()}
+    for method in (None, "binned_polish"):
+        for q in qs:
+            label = f"per-leaf q={q} {method or 'auto'}"
+            cpo.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sel.segmented_quantiles(x, seg, q, sizes, method=method)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            no_launches(cpo, label)
+            check_status(sel, label, res)
+            if not same_bits(res.value, want[q]):
+                raise AssertionError(f"{label}: a threshold differs from "
+                                     f"torch.sort of its leaf")
+            out[label] = dict(sweeps=sorted(set(res.iters.tolist())),
+                              first_call_s=wall)
+    del x, seg
+    # 2^27 elements in 16 interleaved segments, each its own scale
+    g = gen(161)
+    segs = torch.randint(0, SEG_K, (SEG_N,), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    scale = 10.0 ** torch.linspace(-3, 3, SEG_K, device=DEVICE)
+    xs = (torch.randn(SEG_N, generator=g, device=DEVICE)
+          * scale[segs.long()] + scale[segs.long()])
+    sizes = torch.bincount(segs.long(), minlength=SEG_K)
+    ks = ((torch.rand(SEG_K, generator=g, device=DEVICE) * sizes).long()
+          + 1).to(torch.int32)
+    # a segment alone takes the cap and method that the whole array's size
+    # sets, as among the 16
+    kw = dict(cap=sel._default_cap_rows(SEG_N),
+              method=sel._resolve_method(None, SEG_N))
+    cpo.reset_launches()
+    a = sel.segmented_order_statistic(xs, segs, ks, nsegs=SEG_K, **kw)
+    no_launches(cpo, "segmented 2^27")
+    check_status(sel, "segmented 2^27", a)
+    if not same_bits(a.value, segment_oracle(xs, segs, ks, SEG_K)):
+        raise AssertionError("segmented 2^27: a value differs from the "
+                             "per-segment sort")
+    b = sel.segmented_order_statistic(xs, segs, ks, nsegs=SEG_K, **kw)
+    if not same_results(a, b):
+        raise AssertionError("segmented 2^27: two runs differ")
+    for i in range(SEG_K):
+        xi = xs[segs == i]
+        alone = sel.segmented_order_statistic(
+            xi, torch.zeros_like(xi, dtype=torch.int32), ks[i:i + 1],
+            nsegs=1, **kw)
+        if not same_results(alone, [f[i:i + 1] for f in a]):
+            raise AssertionError(f"segmented 2^27: segment {i} alone "
+                                 f"differs from its entry among {SEG_K}")
+    no_launches(cpo, "segmented 2^27 alone")
+    out["2^27 x 16 interleaved"] = dict(
+        sweeps=sorted(set(a.iters.tolist())),
+        status=sorted(set(a.status.tolist())),
+        alone_equal_company=True, two_runs_equal=True)
+    # the auto cp leg: 50,000 elements in 8 segments
+    g = gen(162)
+    segc = torch.randint(0, SEG_CP_K, (SEG_CP_N,), generator=g,
+                         device=DEVICE, dtype=torch.int32)
+    xc = torch.randn(SEG_CP_N, generator=g, device=DEVICE)
+    kc = (torch.bincount(segc.long(), minlength=SEG_CP_K) // 3 + 1).to(
+        torch.int32)
+    cpo.reset_launches()
+    c = sel.segmented_order_statistic(xc, segc, kc, nsegs=SEG_CP_K)
+    no_launches(cpo, "segmented cp")
+    check_status(sel, "segmented cp", c)
+    if not same_bits(c.value, segment_oracle(xc, segc, kc, SEG_CP_K)):
+        raise AssertionError("segmented cp: a value differs from the sort")
+    out["50,000 x 8 cp"] = dict(passes=sorted(set(c.iters.tolist())))
+    log("phase 15, segmented selection: " + json.dumps(out))
+    return out
+
+
+def regression(n, p, seed, outlier_frac=0.3, out_scale=500.0):
+    """X (n, p) randn with an intercept column, y = X theta + 0.01 noise,
+    ``outlier_frac`` of y shifted by out_scale * (1 + U(0, 1)), as
+    ``tests/test_robust.py`` makes them."""
+    g = gen(seed)
+    X = torch.randn((n, p), generator=g, device=DEVICE)
+    X[:, -1] = 1.0
+    theta = torch.randn(p, generator=g, device=DEVICE)
+    y = X @ theta + 0.01 * torch.randn(n, generator=g, device=DEVICE)
+    idx = torch.randperm(n, generator=g, device=DEVICE)[:int(outlier_frac
+                                                               * n)]
+    y[idx] += out_scale * (1 + torch.rand(idx.numel(), generator=g,
+                                          device=DEVICE))
+    return X, y, theta, idx
+
+
+def robust_launches(cpo, label, expect) -> dict:
+    launches = {k: v for k, v in cpo.LAUNCHES.items() if v}
+    if set(launches) - ROBUST_KERNELS:
+        raise AssertionError(f"{label}: launched {launches}, beyond the "
+                             f"rows kernels")
+    for key in expect:
+        if not launches.get(key):
+            raise AssertionError(f"{label}: {key} never launched")
+    # one sum_blocks launch per pass with f32 block partials or row sums
+    if launches.get("sum_blocks", 0) != block_sum_passes(cpo.LAUNCHES):
+        raise AssertionError(f"{label}: sum_blocks launched "
+                             f"{launches.get('sum_blocks', 0)} times")
+    return launches
+
+
+class Swap:
+    """Within ``with Swap(rob, name=fn, ...)``, ``robust`` sees a selection
+    module whose named functions are replaced (the twins, the recorders)."""
+
+    def __init__(self, rob, **fns):
+        self.rob, self.fns = rob, fns
+
+    def __enter__(self):
+        self.orig = self.rob.selection
+        ns = dict(vars(self.orig))
+        ns.update(self.fns)
+        self.rob.selection = types.SimpleNamespace(**ns)
+        return self
+
+    def __exit__(self, *exc):
+        self.rob.selection = self.orig
+
+
+def recorder(fn, calls: list):
+    """``fn`` that appends (args, kwargs, result) of each call to calls."""
+    def rec(*args, **kw):
+        res = fn(*args, **kw)
+        calls.append((args, kw, res))
+        return res
+    return rec
+
+
+def timed(fn, spent: list):
+    """``fn`` that appends each call's synchronized wall time (ms)."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return res
+    return run
+
+
+def _result(sel, v):
+    v = v.reshape(-1) if v.dim() else v
+    zero = torch.zeros_like(v, dtype=torch.int32)
+    return sel.SelectResult(value=v, iters=zero, status=zero, y_lo=v,
+                            y_hi=v, n_in=zero)
+
+
+def sort_twins(sel) -> dict:
+    """The library way to each selection the fits make (the port never
+    calls these): ``torch.sort`` (rows, medians, per-segment), and for
+    weighted medians ``torch.sort`` + a gather + ``torch.cumsum`` +
+    ``torch.searchsorted``."""
+    def select_rows(x, k, **kw):
+        ks = torch.as_tensor(k, device=x.device).long().broadcast_to(
+            x.shape[:1])
+        v = torch.gather(torch.sort(x, dim=1).values, 1, ks[:, None] - 1)
+        return _result(sel, v[:, 0])
+
+    def median(x, **kw):
+        x = x.reshape(-1)
+        return _result(sel, torch.sort(x).values[(x.numel() + 1) // 2 - 1])
+
+    def weighted_median(x, w, **kw):
+        xs, order = torch.sort(x.reshape(-1))
+        cum = torch.cumsum(w.reshape(-1)[order], 0)
+        i = torch.searchsorted(cum, 0.5 * cum[-1:]).clamp(max=xs.numel() - 1)
+        return _result(sel, xs[i][0])
+
+    def segmented_quantiles(x, seg, q, sizes, **kw):
+        ks = torch.tensor([int(np.clip(np.ceil(q * s), 1, s))
+                           for s in sizes], device=x.device)
+        return _result(sel, segment_oracle(x, seg, ks, len(sizes)))
+
+    return dict(select_rows=select_rows, median=median,
+                weighted_median=weighted_median,
+                segmented_quantiles=segmented_quantiles)
+
+
+def topk_twin(sel):
+    """kNN's cutoffs the library way: ``torch.topk`` of the k smallest."""
+    def select_rows(x, k, **kw):
+        return _result(sel, torch.topk(x, int(k), dim=1,
+                                       largest=False).values[:, -1])
+    return select_rows
+
+
+def robust_path(sel, cpo, rob, tree) -> dict:
+    """Phase 16: the robust consumers at full size, each value against an
+    oracle on the card, counts read from zero around each run; only the
+    rows kernels (K1, K1w, K2, K2w, their sums legs under polish) with
+    their block and row sums may launch."""
+    out = {}
+    # LTS: warm and cold give the same bits; the objective is the f64 sum
+    # of the h smallest r^2 by sort; the truth is recovered
+    X, y, theta, outl = regression(FIT_N, FIT_P, 171)
+    h = (FIT_N + FIT_P + 1) // 2
+    fits = {}
+    for warm in (True, False):
+        cpo.reset_launches()
+        fits[warm] = rob.lts_fit(172, X, y, n_starts=LTS_STARTS,
+                                 c_steps=LTS_STEPS, warm=warm)
+        launches = robust_launches(cpo, f"lts_fit warm={warm}",
+                                   ("cp_histogram_batched", "row_sums"))
+    fw, fc = fits[True], fits[False]
+    for name in ("theta", "objective", "inlier_weights"):
+        if not same_bits(getattr(fw, name), getattr(fc, name)):
+            raise AssertionError(f"lts_fit: warm and cold {name} differ")
+    r2 = ((X @ fw.theta - y).double()) ** 2
+    best = torch.sort(r2).values[:h].sum()
+    if abs(float(fw.objective) - float(best)) > 1e-5 * float(best):
+        raise AssertionError(f"lts_fit: objective {float(fw.objective)} "
+                             f"against the sorted sum {float(best)}")
+    err = float(torch.linalg.norm(fw.theta - theta))
+    if err > 1e-2 or float(fw.inlier_weights[outl].sum()) != 0.0:
+        raise AssertionError(f"lts_fit: truth not recovered ({err})")
+    out["lts_fit"] = dict(
+        theta_err=err, objective=float(fw.objective), sorted_sum=float(best),
+        warm_sweeps_per_step=fw.sweeps.float().mean(1).tolist(),
+        cold_sweeps_per_step=fc.sweeps.float().mean(1).tolist(),
+        launches_warm=launches)
+    # LMS: the objective is the sorted median of the best start's r^2
+    cpo.reset_launches()
+    fl = rob.lms_fit(173, X, y, n_starts=LMS_STARTS)
+    launches = robust_launches(cpo, "lms_fit", ("cp_histogram_batched",))
+    thetas = rob._elemental_thetas(173, X, y, LMS_STARTS)
+    R2 = (thetas @ X.T - y[None, :]) ** 2
+    med = torch.sort(R2, dim=1).values[:, (FIT_N + 1) // 2 - 1]
+    del R2
+    bi = int(torch.argmin(med))
+    if not (same_bits(fl.objective, med[bi])
+            and same_bits(fl.theta, thetas[bi])):
+        raise AssertionError("lms_fit: objective differs from the sorted "
+                             "median of the best start")
+    out["lms_fit"] = dict(objective=float(fl.objective),
+                          theta_err=float(torch.linalg.norm(fl.theta
+                                                            - theta)),
+                          launches=launches)
+    del X, y
+    # kNN: integer coordinates (d2 exact); each cutoff against the row's
+    # sorted k-th value, the predictions against a torch.topk twin
+    g = gen(174)
+    tx = torch.randint(-8, 9, (KNN_N, KNN_D), generator=g,
+                       device=DEVICE).float()
+    ty = torch.randint(-4, 5, (KNN_N,), generator=g, device=DEVICE).float()
+    cls = torch.randint(0, 10, (KNN_N,), generator=g, device=DEVICE)
+    qx = torch.randint(-8, 9, (KNN_Q, KNN_D), generator=g,
+                       device=DEVICE).float()
+    calls = []
+    cpo.reset_launches()
+    with Swap(rob, select_rows=recorder(sel.select_rows, calls)):
+        pred = rob.knn_predict(tx, ty, qx, KNN_K)
+    launches = robust_launches(cpo, "knn_predict", ("cp_histogram_batched",))
+    pcls = rob.knn_predict(tx, cls, qx, KNN_K, classify=True, n_classes=10)
+    (d2, _), _, res = calls[0]
+    check_status(sel, "knn_predict", res)
+    kth = torch.sort(d2, dim=1).values[:, KNN_K - 1]
+    if not same_bits(res.value, kth):
+        raise AssertionError("knn_predict: a cutoff differs from the sorted "
+                             "k-th distance")
+    ties = int(((d2 == kth[:, None]).sum(1) > 1).sum())
+    del d2, calls
+    with Swap(rob, select_rows=topk_twin(sel)):
+        tpred = rob.knn_predict(tx, ty, qx, KNN_K)
+        tcls = rob.knn_predict(tx, cls, qx, KNN_K, classify=True,
+                               n_classes=10)
+    if not (same_bits(pred, tpred) and torch.equal(pcls, tcls)):
+        raise AssertionError("knn_predict: predictions differ from the "
+                             "torch.topk twin")
+    out["knn_predict"] = dict(launches=launches, rows_with_ties_at_cutoff=ties)
+    del tx, ty, cls, qx
+    # IRLS at 2^24: warm against cold; each fit's final scale inside the
+    # mass interval of its last weighted median's |r| and weights
+    X, y, theta, _ = regression(IRLS_N, FIT_P, 175, outlier_frac=0.2,
+                                out_scale=50.0)
+    for loss in ("huber", "tukey"):
+        got = {}
+        for warm in (True, False):
+            calls = []
+            cpo.reset_launches()
+            with Swap(rob, weighted_median=recorder(sel.weighted_median,
+                                                    calls)):
+                got[warm] = rob.irls_fit(X, y, loss=loss, iters=IRLS_ITERS,
+                                         warm=warm)
+            launches = robust_launches(cpo, f"irls {loss} warm={warm}",
+                                       ("wcp_histogram_batched",))
+            (r, w), _, res = calls[-1]
+            check_status(sel, f"irls {loss}", res)
+            check, margins = mass_interval(cpo, r, w)
+            check(res)
+            if not same_bits(got[warm].scale, torch.clamp(
+                    1.4826 * res.value, min=1e-12)):
+                raise AssertionError(f"irls {loss}: scale is not its last "
+                                     f"weighted median's")
+            del calls, r, w
+        fw, fc = got[True], got[False]
+        out[f"irls_{loss}"] = dict(
+            warm_equals_cold={n: same_bits(getattr(fw, n), getattr(fc, n))
+                              for n in ("theta", "scale")},
+            theta_err=float(torch.linalg.norm(fw.theta - theta)),
+            warm_sweeps=fw.sweeps.tolist(), cold_sweeps=fc.sweeps.tolist(),
+            margins=margins, launches_warm=launches)
+    del X, y
+    # Theil-Sen at 2^20 with 2^27 pairs (128 cyclic offsets): the slope
+    # inside the mass interval of its weighted median's slopes and
+    # weights, the intercept against a sort
+    g = gen(176)
+    x = torch.randn(TS_N, generator=g, device=DEVICE)
+    y = 1.5 * x - 0.5 + 0.05 * torch.randn(TS_N, generator=g, device=DEVICE)
+    out_ix = torch.rand(TS_N, generator=g, device=DEVICE) < 0.2
+    y = torch.where(out_ix, y + 40.0, y)
+    for weighting in ("sen", "uniform"):
+        wcalls, mcalls = [], []
+        cpo.reset_launches()
+        with Swap(rob, weighted_median=recorder(sel.weighted_median, wcalls),
+                  median=recorder(sel.median, mcalls)):
+            fit = rob.theil_sen_fit(x, y, weighting=weighting,
+                                    max_pairs=TS_PAIRS)
+        launches = robust_launches(cpo, f"theil_sen {weighting}",
+                                   ("wcp_histogram_batched",
+                                    "cp_histogram_batched"))
+        (s, w), _, sres = wcalls[0]
+        check_status(sel, f"theil_sen {weighting}", sres)
+        check, margins = mass_interval(cpo, s, w)
+        check(sres)
+        (r,), _, ires = mcalls[0]
+        if not same_bits(fit.intercept, torch.sort(r).values[
+                (TS_N + 1) // 2 - 1]):
+            raise AssertionError(f"theil_sen {weighting}: intercept differs "
+                                 f"from the sorted median")
+        out[f"theil_sen_{weighting}"] = dict(
+            slope=float(fit.slope), intercept=float(fit.intercept),
+            pairs=int(s.numel()), margins=margins,
+            sweeps=[int(sres.iters), int(ires.iters)], launches=launches)
+        del wcalls, mcalls, s, w, r
+    del x, y
+    # the clip on the phase-15 pytree: per leaf (thresholds against a sort
+    # of each leaf, clipped leaves against torch.clamp), global (its rank
+    # against q) and the histogram estimate (within a bin, above)
+    q = 0.99
+    leaves = rob._tree_flatten(tree)[0]
+    cpo.reset_launches()
+    clipped, thrs = rob.clip_by_quantile(tree, q, per_leaf=True)
+    no_launches(cpo, "clip per leaf")
+    for leaf, c, t in zip(leaves, rob._tree_flatten(clipped)[0],
+                          rob._tree_flatten(thrs)[0]):
+        a = torch.sort(leaf.abs().reshape(-1)).values
+        k = int(np.clip(np.ceil(q * a.numel()), 1, a.numel()))
+        if not (same_bits(t, torch.clamp(a[k - 1], min=1e-8))
+                and torch.equal(c, torch.clamp(leaf, -t, t))):
+            raise AssertionError("clip per leaf: a threshold or a clipped "
+                                 "leaf differs from its sort")
+    del clipped
+    cpo.reset_launches()
+    clipped, thr = rob.clip_by_quantile(tree, q)
+    no_launches(cpo, "clip global")
+    flat = torch.cat([leaf.abs().reshape(-1) for leaf in leaves])
+    n = flat.numel()
+    rank = float(torch.sum(flat <= thr)) / n
+    exact = torch.sort(flat).values[int(np.ceil(q * n)) - 1]
+    hq = rob.hist_quantile(tree, q)
+    lo, hi = float(flat.min().clamp(min=1e-12)), float(flat.max())
+    bin_ratio = math.exp((math.log(hi) - math.log(lo)) / 511)
+    del flat
+    for c, leaf in zip(rob._tree_flatten(clipped)[0], leaves):
+        if not torch.equal(c, torch.clamp(leaf, -thr, thr)):
+            raise AssertionError("clip global: a clipped leaf differs")
+    if abs(rank - q) > 1e-3:
+        raise AssertionError(f"clip global: threshold at rank {rank}")
+    if not (float(exact) <= float(hq) * (1 + 1e-6)
+            and float(hq) <= float(exact) * bin_ratio ** 2):
+        raise AssertionError(f"hist_quantile {float(hq)} not within a bin "
+                             f"above {float(exact)}")
+    out["clip"] = dict(global_threshold=float(thr), exact=float(exact),
+                       global_rank=rank, hist_quantile=float(hq),
+                       bin_ratio=bin_ratio)
+    log("phase 16, robust consumers: " + json.dumps(out))
+    return out
+
+
+def fit_times(sel, rob, name, fit) -> dict:
+    """One fit end to end (CUDA events, median of 3 runs) and the ms its
+    selections take (each call synchronized, one run), then the same with
+    every selection replaced by its sort twin."""
+    out = {}
+    for label, fns in (("port", {}), ("twin", sort_twins(sel))):
+        if name == "knn" and label == "twin":
+            fns = dict(select_rows=topk_twin(sel))
+        with Swap(rob, **fns):
+            ms = cuda_ms(fit, reps=1, rounds=3, warmup=1)
+            spent = []
+            inner = rob.selection
+            wrapped = {k: timed(getattr(inner, k), spent)
+                       for k in ("select_rows", "median", "weighted_median",
+                                 "segmented_quantiles")}
+            with Swap(rob, **wrapped):
+                fit()
+        out[f"{label}_ms"] = ms
+        out[f"{label}_selection_ms"] = sum(spent)
+        out[f"{label}_selections"] = len(spent)
+    return out
+
+
+def robust_timings(sel, cpo, ref, rob, tree) -> dict:
+    """Phase 17: each fit end to end with its selection ms against its
+    sort twin, and the segmented solve's pieces against the bound of one
+    read of x and seg."""
+    out = {}
+    X, y, _, _ = regression(FIT_N, FIT_P, 171)
+    out["lts_fit (2^20, 8), 64 starts, 10 steps"] = fit_times(
+        sel, rob, "lts", lambda: rob.lts_fit(172, X, y, n_starts=LTS_STARTS,
+                                             c_steps=LTS_STEPS))
+    out["lms_fit (2^20, 8), 256 starts"] = fit_times(
+        sel, rob, "lms", lambda: rob.lms_fit(173, X, y,
+                                             n_starts=LMS_STARTS))
+    del X, y
+    g = gen(174)
+    tx = torch.randint(-8, 9, (KNN_N, KNN_D), generator=g,
+                       device=DEVICE).float()
+    ty = torch.randint(-4, 5, (KNN_N,), generator=g, device=DEVICE).float()
+    qx = torch.randint(-8, 9, (KNN_Q, KNN_D), generator=g,
+                       device=DEVICE).float()
+    out["knn_predict 256 x 2^20, k 32"] = fit_times(
+        sel, rob, "knn", lambda: rob.knn_predict(tx, ty, qx, KNN_K))
+    del tx, ty, qx
+    X, y, _, _ = regression(IRLS_N, FIT_P, 175, outlier_frac=0.2,
+                            out_scale=50.0)
+    out["irls_fit huber (2^24, 8), 30 iters"] = fit_times(
+        sel, rob, "irls", lambda: rob.irls_fit(X, y, iters=IRLS_ITERS))
+    del X, y
+    g = gen(176)
+    x = torch.randn(TS_N, generator=g, device=DEVICE)
+    y = 1.5 * x - 0.5 + 0.05 * torch.randn(TS_N, generator=g, device=DEVICE)
+    out["theil_sen_fit sen 2^20, 2^27 pairs"] = fit_times(
+        sel, rob, "ts", lambda: rob.theil_sen_fit(x, y, max_pairs=TS_PAIRS))
+    del x, y
+    out["clip_by_quantile per leaf, phi3 x2 (226.5M)"] = fit_times(
+        sel, rob, "clip", lambda: rob.clip_by_quantile(tree, 0.99,
+                                                       per_leaf=True))
+    # the segmented solve's pieces at 2^27 x 16 interleaved segments
+    g = gen(161)
+    segs = torch.randint(0, SEG_K, (SEG_N,), generator=g, device=DEVICE,
+                         dtype=torch.int32)
+    xs = torch.randn(SEG_N, generator=g, device=DEVICE)
+    ks = (torch.bincount(segs.long(), minlength=SEG_K) // 2 + 1).to(
+        torch.int32)
+    cap = sel._default_cap_rows(SEG_N)
+    seg_t = dict(
+        solve_ms=cuda_ms(lambda: sel.segmented_order_statistic(
+            xs, segs, ks, nsegs=SEG_K), reps=1, rounds=3, warmup=1),
+        sort_twin_ms=cuda_ms(lambda: segment_oracle(xs, segs, ks, SEG_K),
+                             reps=1, rounds=3, warmup=1),
+        layout_ms=cuda_ms(lambda: sel._segmented_layout(xs, segs, SEG_K),
+                          reps=1, rounds=3, warmup=1))
+    lx, lseg, plan = sel._segmented_layout(xs, segs, SEG_K)
+    counts = torch.bincount(segs.long(), minlength=SEG_K).to(torch.int32)
+    ev = sel._segmented_evaluator(lx, lseg, plan, counts, ks)
+    xmin, xmax, _ = ev.init_stats()
+    e1 = ref.bin_edges(xmin, xmax, 128)
+    s, xmn, xmx = sel._run_bracket_phase(ev, "binned", 64, cap, 128)
+    seg_t.update(
+        stats_ms=cuda_ms(ev.init_stats, reps=1, rounds=3, warmup=1),
+        first_sweep_ms=cuda_ms(lambda: ev.histogram(e1), reps=1, rounds=3,
+                               warmup=1),
+        loop_ms=cuda_ms(lambda: sel._run_bracket_phase(
+            ev, "binned", 64, cap, 128), reps=1, rounds=3, warmup=1),
+        finalize_ms=cuda_ms(lambda: sel._finalize_segmented(
+            lx, lseg, plan, ks, s, cap, xmn, xmx), reps=1, rounds=3,
+            warmup=1),
+        sweeps=int(s.iters.max()),
+        bound_ms=SEG_N * 8 / HBM_BYTES_PER_S * 1e3)
+    out["segmented 2^27 x 16"] = seg_t
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--compare", type=Path, metavar="TREE",
@@ -3718,6 +4320,34 @@ def main() -> None:
     log("polish and warm timings (ms, " + name + ", " + smi + "): "
         + json.dumps({**ts, **warm}))
     log("K3s/K3ws build: " + json.dumps(hms))
+
+    # phases 15-17: segmented selection and the robust consumers (plain
+    # torch on top of the rows kernels; imported here, as a tree timed by
+    # --compare may predate them)
+    from repro_torch.core import robust as rob
+    t_new = time.perf_counter()
+    tree = phi3_grads()
+    t0 = time.perf_counter()
+    p15 = segmented_path(sel, cpo, rob, tree)
+    log(f"phase 15 (segmented selection) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    p16 = robust_path(sel, cpo, rob, tree)
+    log(f"phase 16 (robust consumers) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tr = robust_timings(sel, cpo, ref, rob, tree)
+    del tree
+    log(f"phase 17 (robust and segmented timings) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("robust and segmented timings (ms, " + name + ", " + smi + "): "
+        + json.dumps(tr))
+    log(f"phases 15-17 took {time.perf_counter() - t_new:.1f} s")
+    # the whole record of phases 15-17, past the end of the output
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "robust.json").write_text(json.dumps(
+        {"device": name, "smi": smi, "phase_15": p15, "phase_16": p16,
+         "phase_17": tr}) + "\n")
 
     kernels = [
         {"name": "hist_batched (K1)", "route": "cuda",

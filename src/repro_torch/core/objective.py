@@ -26,11 +26,14 @@ int32 counts and every decision is an exact integer comparison.  On the
 weighted leg (``weights=`` on either evaluator) element ``i`` has mass
 ``w_i``: the target ``k`` is a cumulative mass, the measure fields carry
 f32 (or f64) masses and the slopes put the subdifferential's zero at mass
-``k`` (:func:`wfg_from_partials`).
+``k`` (:func:`wfg_from_partials`).  :class:`RowsEvaluator` and
+:class:`SharedEvaluator` own their data; :class:`FnEvaluator` wraps
+closures (segmented selection's, over a segment-sorted layout).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Protocol
+import inspect
+from typing import Callable, NamedTuple, Optional, Protocol
 
 import torch
 
@@ -56,6 +59,10 @@ class FG(NamedTuple):
     n_le: torch.Tensor   # count(x <= y), int32
 
 
+# The weighted septuple is the same type (its measure fields carry masses).
+WFG = FG
+
+
 def os_weights(n, k, dtype=torch.float32):
     """Normalized slope weights (alpha: below-pivot, beta: above-pivot)."""
     n = torch.as_tensor(n).to(dtype)
@@ -63,6 +70,19 @@ def os_weights(n, k, dtype=torch.float32):
     alpha = (n - k + 0.5) / n
     beta = (k - 0.5) / n
     return alpha, beta
+
+
+def eval_partials(x: torch.Tensor, y):
+    """One fused pass: ``(sum of (x-y)+, sum of (y-x)+, n_lt, n_le)`` of
+    all of ``x`` at the pivot ``y``; the sums in ``x``'s dtype, the counts
+    int32.  The four partials are additive over blocks and shards."""
+    x = x.reshape(-1)
+    d = x - torch.as_tensor(y, dtype=x.dtype, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return (torch.sum(torch.maximum(d, zero), dtype=x.dtype),
+            torch.sum(torch.maximum(-d, zero), dtype=x.dtype),
+            torch.sum(d < 0, dtype=torch.int32),
+            torch.sum(d <= 0, dtype=torch.int32))
 
 
 def fg_from_partials(partials, n, k) -> FG:
@@ -84,6 +104,27 @@ def fg_from_partials(partials, n, k) -> FG:
     g_hi = alpha * n_lef / nf - beta * (nf - n_lef) / nf
     return FG(f=f, g_lo=g_lo, g_hi=g_hi, m_lt=n_lt, m_le=n_le,
               n_lt=n_lt, n_le=n_le)
+
+
+def eval_fg(x: torch.Tensor, y, k) -> FG:
+    """Objective, subdifferential and counts of all of ``x`` at the pivot
+    ``y`` for the 1-indexed rank ``k`` (one pass)."""
+    return fg_from_partials(eval_partials(x, y), x.numel(), k)
+
+
+def eval_fg_batched(x: torch.Tensor, y, k) -> FG:
+    """Row-wise :func:`eval_fg`: ``x`` is (B, n), ``y`` and ``k`` (B,) (or
+    scalars); the batch is a dimension of the reductions."""
+    b, n = x.shape
+    y = torch.as_tensor(y, dtype=x.dtype, device=x.device).broadcast_to((b,))
+    d = x - y[:, None]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    partials = (torch.sum(torch.maximum(d, zero), dim=1, dtype=x.dtype),
+                torch.sum(torch.maximum(-d, zero), dim=1, dtype=x.dtype),
+                torch.sum(d < 0, dim=1, dtype=torch.int32),
+                torch.sum(d <= 0, dim=1, dtype=torch.int32))
+    k = torch.as_tensor(k, device=x.device).broadcast_to((b,))
+    return fg_from_partials(partials, n, k)
 
 
 def wfg_from_partials(partials, W, wk) -> FG:
@@ -294,3 +335,59 @@ class SharedEvaluator:
             mean = compiled_mean(x)
         return (torch.amin(x).broadcast_to(shape),
                 torch.amax(x).broadcast_to(shape), mean.broadcast_to(shape))
+
+
+class FnEvaluator:
+    """Adapter: a raw ``partials(y) -> (sp, sn, lt, le)`` closure (every
+    field ``(B,)``) as an :class:`Evaluator`.  Segmented selection builds
+    one (``selection.segmented_order_statistic``), as may a caller that
+    drives the engine through its own data layout.
+
+    ``histogram(edges) -> (cnt, mass, msum)`` (edges ``(B, nbins + 1)``,
+    outputs ``(B, nbins + 2)``, ``msum`` possibly ``None``) is optional;
+    without it the evaluator drives only the cp family.  A closure that
+    takes a ``need_msum`` keyword sees the engine's demand for the
+    per-slot sums (the polish sweeps); a one-argument closure does not,
+    and one that always returns ``None`` for ``msum`` cannot drive the
+    polish.  The engine's ``full_bracket`` hint (a kernel design choice)
+    is not passed on.
+
+    ``n`` is the element count per problem (an int or a ``(B,)`` tensor),
+    ``k`` the target.  Weighted leg: with ``weights_total=W`` the
+    ``partials`` closure returns the six weighted partials, ``k`` is the
+    target mass and the histogram's ``mass`` the weighted slot masses."""
+
+    def __init__(self, partials: Callable, n, k, init_stats: Callable,
+                 histogram: Optional[Callable] = None,
+                 weights_total=None):
+        self._partials = partials
+        self.n = n
+        self.k = k
+        self._init_stats = init_stats
+        self._histogram = histogram
+        self._hist_takes_msum = False
+        if histogram is not None:
+            try:
+                params = inspect.signature(histogram).parameters
+                self._hist_takes_msum = "need_msum" in params
+            except (TypeError, ValueError):  # builtins / odd callables
+                self._hist_takes_msum = False
+        self.weighted = weights_total is not None
+        self.W = weights_total
+
+    def __call__(self, y: torch.Tensor) -> FG:
+        if self.weighted:
+            return wfg_from_partials(self._partials(y), self.W, self.k)
+        return fg_from_partials(self._partials(y), self.n, self.k)
+
+    def histogram(self, edges, need_msum=False, full_bracket=False):
+        if self._histogram is None:
+            raise NotImplementedError(
+                "this FnEvaluator was built without a histogram closure; "
+                "method='binned' needs one")
+        if self._hist_takes_msum:
+            return self._histogram(edges, need_msum=need_msum)
+        return self._histogram(edges)
+
+    def init_stats(self):
+        return self._init_stats()

@@ -60,8 +60,14 @@ answer equals the cold one bit for bit and an unchanged answer
 re-certifies in one sweep; ``core/stream.py`` carries it across the ticks
 of a stream.
 
-Not ported yet: segmented selection and the distributed engine (see
-ROADMAP.md).
+Segmented selection (:func:`segmented_order_statistic`,
+:func:`segmented_quantiles`: per-segment order statistics of one
+concatenated array, the per-leaf regime) runs the same loops on a
+:class:`~repro_torch.core.objective.FnEvaluator` over a segment-sorted
+layout, in plain torch.
+
+Not ported yet: the distributed engine (``ShardedEvaluator`` and
+``repro.core.distributed``; see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -71,11 +77,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import transforms
-from repro_torch.core.objective import (FG, Evaluator, RowsEvaluator,
-                                        SharedEvaluator, _weight_accum_dtype,
-                                        os_weights)
+from repro_torch.core.objective import (FG, Evaluator, FnEvaluator,
+                                        RowsEvaluator, SharedEvaluator,
+                                        _weight_accum_dtype, os_weights)
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import bin_edges
+from repro_torch.kernels.ref import (GroupPlan, _accum_dtype, bin_edges,
+                                     segmented_histogram_ref)
 
 METHODS = ("binned", "binned_polish", "cp", "cp_hybrid", "bisection",
            "golden", "brent", "sort")
@@ -262,7 +269,7 @@ def _seed_state(ev: Evaluator):
         beta = (kk / Wsafe).to(dtype)
         gL0, gR0 = -beta, alpha
     else:
-        nf = torch.full(shape, ev.n, dtype=dtype, device=dev)
+        nf = _count_like(ev.n, dtype, shape, dev)
         alpha, beta = os_weights(nf, kk, dtype)
         gL0 = alpha * (1.0 / nf) - beta * (nf - 1.0) / nf
         gR0 = alpha * (nf - 1.0) / nf - beta * (1.0 / nf)
@@ -275,7 +282,7 @@ def _seed_state(ev: Evaluator):
         yL=xmin, fL=fL0, gL=gL0,
         yR=xmax, fR=fR0, gR=gR0,
         cleL=torch.ones(shape, dtype=torch.int32, device=dev),
-        cleR=torch.full(shape, ev.n, dtype=torch.int32, device=dev),
+        cleR=_count_like(ev.n, torch.int32, shape, dev),
         t_exact=torch.full(shape, float("nan"), dtype=dtype, device=dev),
         found_exact=torch.zeros(shape, dtype=torch.bool, device=dev),
         iters=torch.zeros(shape, dtype=torch.int32, device=dev),
@@ -283,6 +290,15 @@ def _seed_state(ev: Evaluator):
         tp=0.5 * (xmin + xmax), fp=torch.maximum(fL0, fR0),
     )
     return s0, xmin, xmax, kk, dtype, xmean
+
+
+def _count_like(n, dtype, shape, device) -> torch.Tensor:
+    """The element count ``n`` per problem — an int, or a tensor of one
+    count per problem (segmented selection) — in ``dtype``, broadcast to
+    ``shape``."""
+    if torch.is_tensor(n):
+        return n.to(device=device, dtype=dtype).broadcast_to(shape)
+    return torch.full(shape, n, dtype=dtype, device=device)
 
 
 def _fma(a, b, c):
@@ -315,14 +331,23 @@ def _seed_cut(ev: Evaluator, kk, xmin, xmax, xmean):
         beta = (kk / Wsafe).to(dt)
         gL, gR = -beta, alpha
     else:
-        # the folded constants, each rounded to dt on the host (Python
-        # scalars: nothing is copied to the device)
-        nf = torch.tensor(float(ev.n), dtype=dt)
-        c1t = torch.ones((), dtype=dt) / nf
-        c1, c2 = float(c1t), float(c1t * c1t)
-        c3 = float((c1t * (nf - 1)) * c1t)
         kf = kk.to(dt)
-        s1 = float(torch.tensor(ev.n + 0.5, dtype=dt)) - kf
+        if torch.is_tensor(ev.n):
+            # one count per problem (segmented selection): the same
+            # folded constants, per problem on the device
+            nf = ev.n.to(device=kk.device, dtype=dt)
+            c1 = torch.ones((), dtype=dt, device=kk.device) / nf
+            c2, c3 = c1 * c1, (c1 * (nf - 1)) * c1
+            s1 = (ev.n.to(device=kk.device, dtype=torch.float64)
+                  + 0.5).to(dt) - kf
+        else:
+            # the folded constants, each rounded to dt on the host (Python
+            # scalars: nothing is copied to the device)
+            nf = torch.tensor(float(ev.n), dtype=dt)
+            c1t = torch.ones((), dtype=dt) / nf
+            c1, c2 = float(c1t), float(c1t * c1t)
+            c3 = float((c1t * (nf - 1)) * c1t)
+            s1 = float(torch.tensor(ev.n + 0.5, dtype=dt)) - kf
         a245 = kf - 0.5
         alpha, beta = s1 * c1, a245 * c1
         gL = _fma(s1, c2, -(a245 * c3))
@@ -1110,6 +1135,182 @@ def quantiles(x: torch.Tensor, qs, **kw) -> SelectResult:
     so a decile vector costs the data traffic of a single median, not ~K
     times it."""
     return multi_order_statistic(x, ranks_from_quantiles(qs, x.numel()), **kw)
+
+
+# ---------------------------------------------------------------------------
+# Segmented selection: per-segment order statistics of ONE concatenated
+# array (the per-leaf regime: gradient-clip thresholds over a pytree)
+# ---------------------------------------------------------------------------
+
+
+def _finalize_segmented(x, seg, plan: GroupPlan, kk, s: BatchState, cap,
+                        xmin, xmax) -> SelectResult:
+    """Per-segment exact finalize on the segment-sorted layout (``x`` and
+    ``seg`` sorted by segment, data order kept inside each; ``plan`` groups
+    the segments): :func:`_finalize_rows`' compaction and probes with each
+    element held against its own segment's bracket, in O(n) elementwise
+    passes for all K segments — no ``(K, n)`` tensor and no per-segment
+    pass.  A segment's survivors are its first ``cap`` elements in
+    ``(y_lo, y_hi]`` in data order (its rank among them from an int64
+    cumsum), as the reference's per-segment ``rank_compact`` gives them, so
+    every field matches it."""
+    nsegs = kk.shape[0]
+    lo, hi = s.yL[seg], s.yR[seg]
+    big = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    above = x > lo
+    mask_in = above & (x <= hi)
+    cL = plan.tally(~above)
+    vnext = plan.reduce(torch.where(above, x, big), "min")
+    # each survivor's rank in its segment: an int64 cumsum of the mask
+    # less the survivors before the segment's first element (segments are
+    # non-empty, so its start is a valid position)
+    crank = torch.cumsum(mask_in, 0, dtype=torch.int64)
+    first = torch.clamp(plan.start, max=x.numel() - 1)
+    before = crank[first] - mask_in[first].to(torch.int64)
+    n_in = (crank[torch.clamp(plan.start + plan.size - 1, min=0)]
+            - before).to(torch.int32)
+    rank = crank - before[seg]
+    keep = torch.nonzero(mask_in & (rank <= cap)).reshape(-1)
+    z = torch.full((nsegs * cap,), float("inf"), dtype=x.dtype,
+                   device=x.device)
+    z[seg[keep].to(torch.int64) * cap + rank[keep] - 1] = x[keep]
+    zs = torch.sort(z.view(nsegs, cap), dim=1).values
+    m_le_v = plan.tally(x <= vnext[seg])
+    m_lt_max = plan.tally(x < xmax[seg])
+    return _assemble_answers(kk, s, cap, zs, None, cL, n_in, vnext, m_le_v,
+                             m_lt_max, xmin, xmax)
+
+
+def segmented_order_statistic(
+    x: torch.Tensor,
+    seg,
+    ks,
+    *,
+    nsegs: int,
+    method: Optional[str] = None,
+    maxit: int = 64,
+    cap: Optional[int] = None,
+    nbins: Optional[int] = None,
+    prior=None,
+) -> SelectResult:
+    """Per-segment order statistics of one concatenated array.
+
+    ``x`` (n,) holds K = ``nsegs`` segments' data, interleaved or
+    concatenated; ``seg`` (n,) gives each element's segment id in
+    ``[0, nsegs)`` and ``ks`` (nsegs,) the 1-indexed target rank WITHIN each
+    segment (clipped to the segment's size).  Every segment must be
+    non-empty.  Returns a :class:`SelectResult` with (nsegs,) fields:
+    segment ``i`` solves ``x[seg == i], ks[i]`` with the engine's
+    exactness guarantees, and its result does not depend on the other
+    segments.
+
+    The engine runs on an :class:`~repro_torch.core.objective.FnEvaluator`
+    over a segment-sorted layout, made once at entry by one stable sort of
+    the positions by ``seg`` (data order kept inside a segment; skipped
+    when ``seg`` is already sorted, as for concatenated pytree leaves).
+    Every data pass is shared by all segments: the binned sweep is
+    ``kernels.ref.segmented_histogram_ref`` (each element binned against
+    its own segment's ladder; integer counts), the cp pass and the stats
+    reduce each segment with a :class:`~repro_torch.kernels.ref.GroupPlan`
+    (a fixed tree over its own elements: no f32 atomics, no dependence on
+    the other segments), and the finalize is O(n)
+    (:func:`_finalize_segmented`).  It is plain torch, on ``x``'s device,
+    and launches none of the port's kernels.  ``method``, ``maxit``,
+    ``cap``, ``nbins`` (128 where the kernels would run, else 16) and
+    ``prior`` as in :func:`multi_order_statistic`.
+    """
+    prior = as_prior(prior)
+    x = x.reshape(-1)
+    n = x.numel()
+    seg = torch.as_tensor(seg, device=x.device).reshape(-1)
+    method = _resolve_method(method, n)
+    nbins = _resolve_nbins(nbins, x)
+    if cap is None:
+        cap = _default_cap_rows(n)
+    cap = min(cap, n)
+    x, seg, plan = _segmented_layout(x, seg, nsegs)
+    counts = plan.size.to(torch.int32)
+    kk = torch.minimum(
+        torch.clamp(torch.as_tensor(ks, device=x.device).reshape(-1).to(
+            torch.int32), min=1), torch.clamp(counts, min=1))
+
+    if method == "sort":
+        # the segment-sorted layout sorted by value inside each segment:
+        # a stable sort by value, then a stable sort by segment
+        xs, vo = torch.sort(x, stable=True)
+        xs = xs[torch.sort(seg[vo], stable=True).indices]
+        return SelectResult(
+            value=xs[torch.clamp(plan.start + kk - 1, 0, n - 1)],
+            iters=torch.zeros((nsegs,), dtype=torch.int32, device=x.device),
+            status=torch.full((nsegs,), EXACT_HIT, dtype=torch.int32,
+                              device=x.device),
+            y_lo=plan.reduce(x, "min"), y_hi=plan.reduce(x, "max"),
+            n_in=counts)
+
+    ev = _segmented_evaluator(x, seg, plan, counts, kk)
+    s, xmin, xmax = _run_bracket_phase(ev, method, maxit, cap, nbins, prior)
+    return _finalize_segmented(x, seg, plan, kk, s, cap, xmin, xmax)
+
+
+def _segmented_layout(x, seg, nsegs: int):
+    """The segment-sorted layout ``(x, seg, plan)``: ``x`` and ``seg``
+    stably sorted by segment (data order kept inside each; no sort when
+    ``seg`` is already nondecreasing), ``seg`` as int32, and the
+    :class:`GroupPlan` of the segments."""
+    if not bool((seg[1:] >= seg[:-1]).all()):
+        seg, order = torch.sort(seg, stable=True)
+        x = x[order]
+    seg = seg.to(torch.int32)
+    return x, seg, GroupPlan(seg, nsegs)
+
+
+def _segmented_evaluator(x, seg, plan: GroupPlan, counts,
+                         kk) -> FnEvaluator:
+    """The counting-leg :class:`FnEvaluator` of segmented selection over
+    the segment-sorted layout: each segment's sums (the cp partials, the
+    mean) and extremes by ``plan`` (a fixed tree over its own elements),
+    its counts by integer cumsums (``GroupPlan.tally``), its binned sweep
+    by ``segmented_histogram_ref``."""
+    acc = _accum_dtype(x)
+
+    def partials(y):
+        d = x.to(acc) - y.to(acc)[seg]
+        zero = torch.zeros((), dtype=acc, device=x.device)
+        sums = plan.reduce(torch.stack(
+            [torch.maximum(d, zero), torch.maximum(-d, zero)], dim=-1))
+        return sums[:, 0], sums[:, 1], plan.tally(d < 0), plan.tally(d <= 0)
+
+    def init_stats():
+        mean = plan.reduce(x.to(acc)) / torch.clamp(counts, min=1).to(acc)
+        return (plan.reduce(x, "min"), plan.reduce(x, "max"),
+                mean.to(x.dtype))
+
+    def histogram(edges, need_msum=False):
+        out = segmented_histogram_ref(x, seg, edges,
+                                      rows=(x,) if need_msum else ())
+        return out[0], out[0], (out[1] if need_msum else None)
+
+    return FnEvaluator(partials, counts, kk, init_stats, histogram=histogram)
+
+
+def segmented_quantiles(x: torch.Tensor, seg, q, sizes,
+                        **kw) -> SelectResult:
+    """Per-segment lower q-quantiles from the STATIC segment sizes.
+
+    ``sizes`` (a sequence of ints, the leaf sizes of the per-leaf regime)
+    turns ``q`` into per-segment ranks ``ceil(q * size)`` clipped to
+    ``[1, size]`` on the host in f64, then runs ONE
+    :func:`segmented_order_statistic`.  ``q`` is a scalar (the same
+    quantile in every segment) or one value per segment."""
+    sizes = [int(v) for v in np.asarray(sizes).reshape(-1)]
+    if isinstance(q, torch.Tensor):
+        q = q.detach().cpu().numpy()
+    qv = np.broadcast_to(np.asarray(q, np.float64).reshape(-1),
+                         (len(sizes),))
+    ks = np.asarray([int(np.clip(np.ceil(qi * ni), 1, max(ni, 1)))
+                     for qi, ni in zip(qv, sizes)], np.int32)
+    return segmented_order_statistic(x, seg, torch.as_tensor(ks),
+                                     nsegs=len(sizes), **kw)
 
 
 # ---------------------------------------------------------------------------

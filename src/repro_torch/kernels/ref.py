@@ -316,3 +316,177 @@ def wcp_histogram_multi_ref(x: torch.Tensor, w: torch.Tensor,
                             for e in edges))
     return (torch.stack(cnt), torch.stack(wcnt),
             torch.stack(wsum) if want_sums else None)
+
+
+# ---------------------------------------------------------------------------
+# Segmented selection: each element binned against its OWN segment's ladder
+# (the per-leaf quantile pass), and reductions of contiguous groups in an
+# order set by each group alone
+# ---------------------------------------------------------------------------
+
+# Elements per row of a group reduction's tree (a power of two).
+GROUP_WIDTH = 128
+
+_IDENTITY = {"sum": -0.0, "min": float("inf"), "max": float("-inf")}
+_COMBINE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+class GroupPlan:
+    """Reductions of contiguous groups, each in an order set by its own
+    elements alone.
+
+    ``gid`` (m,) holds each element's group id in ``[0, ngroups)`` and is
+    nondecreasing, so every group is a contiguous run (``start`` and
+    ``size`` per group; :meth:`tally` counts a mask per group).  A group's
+    reduction (:meth:`reduce`) is a tree over its own elements in data
+    order: rows of :data:`GROUP_WIDTH` from its first element (the last
+    row padded with the operation's identity, ``-0.0`` for sums), each row
+    reduced by
+    pairwise halving, then the group's row results the same way, level by
+    level, down to one value.  The tree's shape follows the group's size
+    alone, and it is made of elementwise operations only: no atomics, and
+    no library reduction whose order follows the shape of its launch.  So
+    a group's result does not depend on the other groups (their number,
+    sizes or values) nor on the device: the CPU and the card give the same
+    bits.  Extra levels (more elements elsewhere) only add the identity.
+
+    The plan (each level's destinations) is built once per ``gid``; every
+    bound is static (from ``m`` and ``ngroups``), so building it and
+    reducing with it never read a value back to the host.  Group
+    ``ngroups`` (past the real ones) holds each level's padding rows.
+    """
+
+    def __init__(self, gid: torch.Tensor, ngroups: int):
+        dev = gid.device
+        w = GROUP_WIDTH
+        gid = gid.reshape(-1)
+        m = gid.numel()
+        g1 = ngroups + 1
+        # the groups' bounds by binary search on the sorted ids (a bincount
+        # of sorted ids makes every thread of a block hit one bin)
+        bounds = torch.searchsorted(gid, torch.arange(
+            g1, dtype=gid.dtype, device=dev))
+        self.ngroups = ngroups
+        self.start = bounds[:ngroups]
+        self.size = bounds[1:] - self.start
+        cnt = torch.cat([self.size, self.size.new_zeros(1)])
+        # int32 cumsums of masks (``tally``) while they cannot overflow
+        self._cdt = torch.int32 if m < 2 ** 31 else torch.int64
+        pos = torch.arange(m, device=dev) - self.start[gid]
+        self.levels = []
+        bound = m  # the largest real group's element count, at most
+        while True:
+            rows = (cnt + (w - 1)) // w
+            ends = torch.cumsum(rows, 0)
+            row0 = ends - rows
+            nrows = m // w + g1  # >= sum(rows): static
+            self.levels.append((row0[gid] * w + pos, nrows))
+            if bound <= w:
+                break
+            bound = -(-bound // w)
+            # the next level's elements are this level's nrows results:
+            # group g's rows row0[g] .. ends[g] - 1, the rest in group
+            # ngroups (padding)
+            r = torch.arange(nrows, device=dev)
+            gid = torch.clamp(torch.bucketize(r, ends[:ngroups], right=True),
+                              max=ngroups)
+            cnt = rows.clone()
+            cnt[ngroups] += nrows - ends[ngroups]
+            pos = r - row0[gid]
+            m = nrows
+        self.row = row0[:ngroups]
+        self.nonempty = rows[:ngroups] > 0
+
+    def tally(self, mask: torch.Tensor) -> torch.Tensor:
+        """int32 count of True in each group of ``mask`` (m,): differences
+        of one integer cumsum at the groups' bounds."""
+        c = torch.cumsum(mask, 0, dtype=self._cdt)
+        last = c[torch.clamp(self.start + self.size - 1, min=0)]
+        first = torch.where(self.start > 0, c[torch.clamp(self.start - 1,
+                                                          min=0)], 0)
+        return torch.where(self.size > 0, last - first, 0).to(torch.int32)
+
+    def reduce(self, vals: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``op`` ('sum', 'min' or 'max') of each group of ``vals`` ((m,) or
+        (m, c): c columns at once) in ``vals``' dtype; returns (ngroups,)
+        (or (ngroups, c)).  NaN propagates; sums are returned with ``+0.0``
+        for an empty group or a zero total, as a sum that starts at 0."""
+        ident = _IDENTITY[op]
+        combine = _COMBINE[op]
+        w = GROUP_WIDTH
+        v = vals
+        for dest, nrows in self.levels:
+            buf = torch.full((nrows * w,) + tuple(v.shape[1:]), ident,
+                             dtype=v.dtype, device=v.device)
+            buf[dest] = v
+            buf = buf.view((nrows, w) + tuple(v.shape[1:]))
+            width = w
+            while width > 1:
+                width //= 2
+                buf = combine(buf[:, :width], buf[:, width:])
+            v = buf[:, 0]
+        keep = self.nonempty.reshape((-1,) + (1,) * (v.dim() - 1))
+        out = torch.where(keep, v[self.row], torch.full((), ident,
+                                                        dtype=v.dtype,
+                                                        device=v.device))
+        return out + 0.0 if op == "sum" else out
+
+
+def segmented_slots(x: torch.Tensor, seg: torch.Tensor,
+                    edges: torch.Tensor) -> torch.Tensor:
+    """Each element's slot within its own segment's ladder:
+    ``searchsorted_slots(x_i, edges[seg_i])`` without per-element edge rows.
+
+    A branchless binary search over the flattened ``(K, nbins+1)`` edge
+    array — ``ceil(log2(nbins+2))`` rounds of (n,)-shaped gathers, so no
+    ``(n, nbins)`` or ``(K, n)`` tensor exists — comparing against the
+    REALIZED edges: ``pos = count(edges[seg] < x)``, NaN forced to the top
+    slot (every NaN comparison is false, so the search walks right).
+    Returns int32 slots shaped like ``x``."""
+    ne = edges.shape[-1]
+    # each ladder padded with +inf to p = 2^b > ne entries: no x exceeds a
+    # pad, so the search needs no bounds checks
+    p = 1 << ne.bit_length()
+    ef = torch.full((edges.shape[0], p), float("inf"), dtype=edges.dtype,
+                    device=edges.device)
+    ef[:, :ne] = edges
+    ef = ef.reshape(-1)
+    # ptr = seg * p - 1 + pos; invariant: every edges[seg][:pos] < x; steps
+    # p/2, .., 1 reach any count in [0, p - 1]
+    base = seg.to(torch.int32) * p - 1
+    ptr = base
+    step = p // 2
+    while step:
+        cand = ptr + step
+        ptr = torch.where(ef[cand] < x, cand, ptr)
+        step //= 2
+    return torch.where(torch.isnan(x), ne, ptr - base).to(torch.int32)
+
+
+def segmented_histogram_ref(x: torch.Tensor, seg: torch.Tensor,
+                            edges: torch.Tensor, rows=()):
+    """Per-segment histograms in one data pass: element ``i`` lands in slot
+    ``segmented_slots(x, seg, edges)[i]`` of segment ``seg[i]``'s
+    ``(nbins+2,)`` vector (``edges`` (K, nbins+1)).  Returns
+    ``[cnt int32, *sums]``, each ``(K, nbins+2)``: the counts by integer
+    ``bincount`` of the flattened slot ``seg*(nbins+2) + slot``, and one
+    per-slot sum in the edges' dtype for each tensor of ``rows`` (aligned
+    with ``x``).  The sums group the elements by flattened slot with one
+    stable sort (data order inside a slot) and reduce each slot with
+    :class:`GroupPlan`, so a slot's sum depends on its own elements only
+    and no f32 atomics run."""
+    kk = edges.shape[0]
+    nslots = edges.shape[-1] + 1
+    dt = edges.dtype
+    x = x.to(dt)
+    flat = seg.to(torch.int64) * nslots + segmented_slots(x, seg, edges)
+    cnt = torch.bincount(flat, minlength=kk * nslots)[:kk * nslots]
+    out = [cnt.reshape(kk, nslots).to(torch.int32)]
+    if rows:
+        flat, order = torch.sort(flat, stable=True)
+        plan = GroupPlan(flat, kk * nslots)
+        vals = torch.stack([torch.as_tensor(v).to(dt).reshape(-1)[order]
+                            for v in rows], dim=-1)
+        sums = plan.reduce(vals)
+        out += [sums[:, j].reshape(kk, nslots) for j in range(len(rows))]
+    return out

@@ -1103,3 +1103,41 @@ def test_lane_sums_ignore_the_batch_and_the_alignment(cuda, leg):
                                           edges)[2]
     bound = _f32_chain(n) * 2.0 ** -24 * scale
     assert bool(((rows[:, -1].double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("method", ["binned", "binned_polish", "cp"])
+def test_segmented_on_the_card(cuda, method):
+    """Segmented selection is plain torch on the card: no kernel launches;
+    two runs give the same bits; each of 16 interleaved segments solved
+    alone (the same cap) equals its entry among the 16 in every field;
+    values against a per-segment sort; and the per-segment group sums
+    (``GroupPlan``) are the CPU's bits."""
+    n = (1 << 20) + 3 if method != "cp" else 50_000
+    g = torch.Generator(device=cuda).manual_seed(41)
+    x = torch.randn(n, generator=g, device=cuda) * 3.0
+    seg = torch.randint(0, 16, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    sizes = torch.bincount(seg, minlength=16)
+    ks = (torch.rand(16, generator=g, device=cuda) * sizes).to(
+        torch.int32) + 1
+    kw = dict(method=method, cap=selection._default_cap_rows(n))
+    cp_objective.reset_launches()
+    a = selection.segmented_order_statistic(x, seg, ks, nsegs=16, **kw)
+    assert not any(cp_objective.LAUNCHES.values()), cp_objective.LAUNCHES
+    b = selection.segmented_order_statistic(x, seg, ks, nsegs=16, **kw)
+    for name in a._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for i in range(16):
+        xi = x[seg == i]
+        alone = selection.segmented_order_statistic(
+            xi, torch.zeros_like(xi, dtype=torch.int32), ks[i:i + 1],
+            nsegs=1, **kw)
+        for name in a._fields:
+            assert torch.equal(getattr(alone, name),
+                               getattr(a, name)[i:i + 1]), (i, name)
+        assert float(a.value[i]) == float(torch.sort(xi).values[ks[i] - 1])
+    ss, order = torch.sort(seg, stable=True)
+    plan = ref.GroupPlan(ss, 16)
+    sums = plan.reduce(x[order])
+    cpu = ref.GroupPlan(ss.cpu(), 16).reduce(x[order].cpu())
+    assert torch.equal(sums.cpu().view(torch.int32), cpu.view(torch.int32))

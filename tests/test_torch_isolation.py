@@ -40,7 +40,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_port_runs_with_jax_blocked():
     """In a fresh interpreter where ``import jax`` fails, the whole port
-    imports and answers a CPU median, and no ``repro`` module loads."""
+    imports (``core.robust`` included) and answers a CPU median and a CPU
+    segmented solve, and no ``repro`` module loads."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -48,11 +49,15 @@ import numpy as np
 import repro_torch
 import repro_torch.kernels._build, repro_torch.kernels.cp_objective
 import repro_torch.kernels.ops, repro_torch.kernels.ref
+import repro_torch.core.robust
 from repro_torch.convert import from_numpy
 from repro_torch.core import selection
 x = from_numpy(np.arange(9, dtype=np.float32)[::-1].copy(), device="cpu")
 assert float(selection.median(x).value) == 4.0
 assert selection.quantiles(x, [0.5, 1.0]).value.tolist() == [4.0, 8.0]
+seg = from_numpy(np.arange(9, dtype=np.int32) % 2, device="cpu")
+res = selection.segmented_order_statistic(x, seg, [1, 4], nsegs=2)
+assert res.value.tolist() == [0.0, 7.0], res
 loaded = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not loaded, loaded
 print("ok")
