@@ -182,7 +182,30 @@ Phases (any failure raises and the script exits non-zero):
    ``torch.topk`` / sort + cumsum + searchsorted (the port never calls
    them); the segmented solve at 2^27 x 16 (layout, stats, one sweep,
    loop, finalize) against the bound of one read of x and seg.  Phases
-   15-17's record is also written to chiprun_out/robust.json.
+   15-17's record is also written to chiprun_out/robust.json;
+18. the distributed layer (``repro_torch.core.distributed``): 4 gloo ranks
+   on the one card (this script, ``--dist-rank``; ``file://`` init; each
+   shard a CUDA tensor; the kernels built before they start), each case's
+   launch counts read from zero on every rank and only the path's kernel
+   allowed (once a round, with ``sum_blocks`` / ``row_sums`` where its leg
+   has f32 partials): ``sharded_median`` of 2^27 f32 randn ('binned', K3
+   at one ladder; 'binned_polish', K3s; 'cp', K4), ``sharded_quantile``
+   0.9, a warm re-selection (1 round, the cold bits),
+   ``sharded_weighted_median`` with 0/1 weights (K3w, K3ws, K4w) and dense
+   weights (a mass interval), ``sharded_quantiles`` at 16 levels (K3, K3s,
+   K4 at K = 16) and the weighted twins (K3w, K3ws, K4w), the K = 8
+   deciles at n = 2^20 with nbins 512 and cap_local 4096 in 1 round (both
+   measures); rank 0 holds each value against ``torch.sort`` of the whole
+   array (or the sort + f64 cumulative-mass oracle) and the local engine;
+   ``robust_aggregate`` over 4 replicas of phi3-mini's attention output
+   projection (3072 x 3072) and two RMSNorm scales, one replica poisoned
+   at 1e6: 'mean', 'median' (auto, 'cp', 'binned') and 'trimmed', each
+   against a sort of the replicas; every rank's fields the same bits;
+   timings (host clock around synchronized calls, medians of 5 after a
+   warm-up) with a breakdown into local passes and collectives, the local
+   median on one rank, K3s/K3ws at one ladder in both designs; then one
+   NCCL rank's ``sharded_median``.  Written to
+   chiprun_out/distributed.json.
 
 Every pass with f32 block partials (K2, K4, and the histogram legs with
 rows: K1w, K1s, K1ws, K3w, K3s, K3ws) sums them with one ``sum_blocks``
@@ -4148,6 +4171,495 @@ def robust_timings(sel, cpo, ref, rob, tree) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the distributed layer (4 gloo ranks on the one card, one NCCL)
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 4
+DIST_N = N_BIG                      # 2^27 f32 over 4 ranks: 2^25 a rank
+DIST_K8_N = 1 << 20                 # the size the reference pins 1 round at
+DIST_K8_NBINS, DIST_K8_CAP = 512, 4096
+DECILES = np.arange(1, 9) / 10
+DIST_TIMEOUT = 900                  # s, per rank process
+DIST_REPS = 5
+# robust_aggregate's leaves: phi3-mini's attention output projection
+# (d_model x d_model, src/repro/configs/phi3_mini.py) and its two RMSNorm
+# scales, one replica a rank, replica 3 poisoned at 1e6
+AGG_LEAVES = (("o_proj", (3072, 3072)), ("ln1", (3072,)), ("ln2", (3072,)))
+# each 1-D and multi-k case: (its wrapper's LAUNCHES key, the leg)
+DIST_KERNEL_KEYS = {
+    "hist_multi (K3)": ("cp_histogram", "cp_histogram_multi"),
+    "whist_multi (K3w)": ("wcp_histogram", "wcp_histogram_multi"),
+    "shist_multi_sums (K3s)": ("cp_histogram_sums", "cp_histogram_multi_sums"),
+    "wshist_multi_sums (K3ws)": ("wcp_histogram_sums",
+                                 "wcp_histogram_multi_sums"),
+    "fg_multi (K4)": ("cp_partials", "cp_partials_multi"),
+    "wfg_multi (K4w)": ("wcp_partials", "wcp_partials_multi"),
+}
+
+
+def _sync() -> None:
+    if torch.cuda.is_available() and DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _bits_digest(res) -> str:
+    """One digest of every field's bytes (the same on every rank)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in res:
+        h.update(t.detach().reshape(-1).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_drive(sel, cpo, label, fn, expect_kernel, record, check=None):
+    """Run one distributed call with the launch counts read from zero:
+    only ``expect_kernel`` may launch, once per round (``sum_blocks`` with
+    it on a leg with f32 partials, ``row_sums`` in a weighted finalize);
+    ``check(res)`` raises unless the values are right (rank 0 only)."""
+    cpo.reset_launches()
+    _sync()
+    t0 = time.perf_counter()
+    res = fn()
+    _sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in cpo.LAUNCHES.items() if v}
+    if bool((res.status == sel.NOT_CONVERGED).any()):
+        raise AssertionError(f"{label}: NOT_CONVERGED")
+    rounds = int(res.iters.max())
+    if DEVICE == "cuda":
+        block_sums = (launches.get(expect_kernel, 0)
+                      if has_block_sums(expect_kernel) else 0) \
+            + launches.get("row_sums", 0)
+        if (set(launches) - {"sum_blocks", "row_sums"} != {expect_kernel}
+                or launches.get("sum_blocks", 0) != block_sums
+                or launches[expect_kernel] != rounds):
+            raise AssertionError(f"{label}: launched {launches} in {rounds} "
+                                 f"rounds, expected {expect_kernel} once a "
+                                 f"round (and sum_blocks with f32 partials)")
+    if check is not None:
+        check(res)
+    record[label] = {"value": res.value.reshape(-1).tolist()[:16],
+                     "rounds": rounds,
+                     "status": sorted(set(res.status.reshape(-1).tolist())),
+                     "n_in": res.n_in.reshape(-1).tolist()[:16],
+                     "launches": launches, "first_call_ms": wall,
+                     "digest": _bits_digest(res)}
+    return res
+
+
+def _equal_to(want, local=None):
+    """A check: the value equals ``want`` (a sort oracle) and, where
+    given, the local engine's value on the whole array."""
+    def check(res):
+        got = res.value.float().reshape(-1)
+        if not torch.equal(got, want.float().reshape(-1).to(got.device)):
+            raise AssertionError(f"value {got.tolist()[:4]} differs from "
+                                 f"the oracle {want.reshape(-1).tolist()[:4]}")
+        if local is not None and not torch.equal(
+                got, local.float().reshape(-1)):
+            raise AssertionError("value differs from the local engine's")
+    return check
+
+
+def _timed_ms(fn, reps=DIST_REPS) -> list:
+    """Host-clock ms of ``reps`` synchronized calls after one warm-up."""
+    fn()
+    out = []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _breakdown(D, collectives, ops, fn) -> dict:
+    """One run of ``fn`` with its local data passes and its collectives
+    each synchronized and timed (host clock): the distributed layer's two
+    costs; the rest is the seeds, the edges, the finalize's local work."""
+    spent = {"local_passes": [], "collectives": []}
+    patches = []
+    for mod, names, key in (
+            (ops, ("fused_histogram", "fused_partials",
+                   "fused_weighted_histogram", "fused_weighted_partials",
+                   "fused_histogram_multi", "fused_partials_multi",
+                   "fused_weighted_histogram_multi",
+                   "fused_weighted_partials_multi"), "local_passes"),
+            (collectives, ("psum", "pmax", "pmin", "psum_backend",
+                           "all_gather"), "collectives"),
+            (D, ("psum", "pmax", "pmin", "psum_backend"), "collectives")):
+        for name in names:
+            orig = getattr(mod, name)
+            patches.append((mod, name, orig))
+            setattr(mod, name, timed(orig, spent[key]))
+    try:
+        _sync()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, name, orig in patches:
+            setattr(mod, name, orig)
+    return {"total_ms": total, "rounds": int(res.iters.max()),
+            "local_passes_ms": sum(spent["local_passes"]),
+            "local_passes": len(spent["local_passes"]),
+            "collectives_ms": sum(spent["collectives"]),
+            "collectives": len(spent["collectives"])}
+
+
+def dist_rank_main(rank: int, world: int, init: str, backend: str) -> None:
+    """One rank of phase 18: every case of the distributed layer at full
+    size, its launches read from zero; rank 0 holds each value against
+    ``torch.sort`` of the whole array (or the sort + f64 cumulative-mass
+    oracle) and the local engine, and times.  Prints one JSON line last."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    from repro_torch.core import collectives
+    from repro_torch.core import distributed as D
+    from repro_torch.core import robust as rob
+    from repro_torch.core import selection as sel
+    from repro_torch.kernels import cp_objective as cpo
+    from repro_torch.kernels import ops
+
+    mesh = init_device_mesh("cpu" if backend == "gloo" else "cuda",
+                            (world,), mesh_dim_names=("data",))
+    lead = rank == 0
+    rec = {"rank": rank, "world": world, "backend": backend, "cases": {}}
+    cases = rec["cases"]
+    if backend == "nccl":
+        x = torch.randn(DIST_N, generator=gen(181), device=DEVICE)
+        xl = x.chunk(world)[rank].contiguous()
+        k = (DIST_N + 1) // 2
+        xs = torch.sort(x).values if lead else None
+        dist_drive(sel, cpo, "sharded_median binned (nccl)",
+                   lambda: D.sharded_median(xl, mesh, "data"),
+                   "cp_histogram", cases,
+                   _equal_to(xs[k - 1]) if lead else None)
+        print(json.dumps(rec), flush=True)
+        dist.destroy_process_group()
+        return
+
+    t_checks = time.perf_counter()
+
+    # ---- robust_aggregate over 4 replicas of phi3-mini leaves -----------
+    def replica(r):
+        tree = {}
+        for i, (name, shape) in enumerate(AGG_LEAVES):
+            t = torch.randn(shape, generator=gen(190 + 10 * r + i),
+                            device=DEVICE)
+            tree[name] = torch.full_like(t, 1e6) if r == 3 else t
+        return tree
+
+    mine = replica(rank)
+    sorted_reps = {name: torch.sort(torch.stack(
+        [replica(r)[name] for r in range(world)]), dim=0).values
+        for name, _ in AGG_LEAVES} if lead else None
+    agg = {}
+    for label, kw in (("mean", {"method": "mean"}),
+                      ("median auto (gather)", {"method": "median",
+                                                "agg_impl": "auto"}),
+                      ("median cp", {"method": "median", "agg_impl": "cp"}),
+                      ("median binned", {"method": "median",
+                                         "agg_impl": "binned"}),
+                      ("trimmed 0.5 (gather)", {"method": "trimmed",
+                                                "trim": 0.5})):
+        cpo.reset_launches()
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _sync()
+        t0 = time.perf_counter()
+        out = rob.robust_aggregate(mine, None, **kw)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = {k: v for k, v in cpo.LAUNCHES.items() if v}
+        if moved:
+            raise AssertionError(f"robust_aggregate {label} launched "
+                                 f"{moved}")
+        agg[label] = {"ms": ms, "digest": _bits_digest(
+            [out[n] for n, _ in AGG_LEAVES])}
+        if DEVICE == "cuda":
+            agg[label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if lead:
+            for name, _ in AGG_LEAVES:
+                s = sorted_reps[name]
+                got = out[name]
+                if kw["method"] == "median":
+                    ok = torch.equal(got, s[(world + 1) // 2 - 1])
+                else:
+                    # the kept replicas: all (mean), or those between the
+                    # 2nd and 3rd smallest, ties with them included
+                    keep = (torch.ones_like(s, dtype=torch.bool)
+                            if kw["method"] == "mean"
+                            else (s >= s[1]) & (s <= s[2]))
+                    want = torch.where(keep, s.double(), 0).sum(dim=0) \
+                        / keep.sum(dim=0)
+                    rel = float(((got.double() - want).abs()
+                                 / want.abs().clamp(min=1e-30)).max())
+                    agg[label].setdefault("max_rel_err", {})[name] = rel
+                    ok = rel <= (1e-6 if kw["method"] == "mean"
+                                 else 2.0 ** -22)
+                if not ok:
+                    raise AssertionError(f"robust_aggregate {label}: {name} "
+                                         f"differs from the sort of the "
+                                         f"replicas")
+    rec["robust_aggregate"] = agg
+    # the binned aggregation's (S, nbins + 2) tensors stay in this
+    # process's cache: hand them back before the 2^27 arrays
+    del mine, sorted_reps, out
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    x = torch.randn(DIST_N, generator=gen(181), device=DEVICE)
+    xl = x.chunk(world)[rank].contiguous()
+    k = (DIST_N + 1) // 2
+    w01 = (torch.rand(DIST_N, generator=gen(182), device=DEVICE)
+           < 1 / 16).float()
+    wd = dense_weights(DIST_N, 183)
+    w01l, wdl = w01.chunk(world)[rank].contiguous(), \
+        wd.chunk(world)[rank].contiguous()
+    W01 = float(w01.sum())
+    assert W01 < EXACT_TOTAL
+    ks16 = sel.ranks_from_quantiles(QS16, DIST_N)
+    wks16 = torch.tensor(QS16 * W01, dtype=torch.float32, device=DEVICE)
+    if lead:
+        xs = torch.sort(x).values
+        xsw, cumw = sorted_mass(x, w01)
+
+    # ---- 1-D sharded solves (K = 1 views of K3/K4, their legs) ----------
+    def oracle(kq):
+        return xs[kq - 1] if lead else None
+
+    cold = None
+    for method, key in (("binned", "cp_histogram"),
+                        ("binned_polish", "cp_histogram_sums"),
+                        ("cp", "cp_partials")):
+        res = dist_drive(
+            sel, cpo, f"sharded_median {method}",
+            lambda m=method: D.sharded_median(xl, mesh, "data", method=m),
+            key, cases, _equal_to(oracle(k), sel.median(x).value)
+            if lead else None)
+        cold = res if method == "binned" else cold
+    kq = int(sel.ranks_from_quantiles(0.9, DIST_N))
+    dist_drive(sel, cpo, "sharded_quantile 0.9 binned",
+               lambda: D.sharded_quantile(xl, 0.9, mesh, "data"),
+               "cp_histogram", cases,
+               _equal_to(oracle(kq), sel.quantile(x, 0.9).value)
+               if lead else None)
+    warm = dist_drive(sel, cpo, "sharded_median binned, warm (prior=cold)",
+                      lambda: D.sharded_median(xl, mesh, "data", prior=cold),
+                      "cp_histogram", cases,
+                      _equal_to(oracle(k)) if lead else None)
+    if int(warm.iters) != 1 or not same_bits(warm.value, cold.value):
+        raise AssertionError(f"warm re-selection took {int(warm.iters)} "
+                             f"rounds or moved the value")
+    wwant = mass_oracle(xsw, cumw, 0.5 * W01) if lead else None
+    for method, key in (("binned", "wcp_histogram"),
+                        ("binned_polish", "wcp_histogram_sums"),
+                        ("cp", "wcp_partials")):
+        dist_drive(
+            sel, cpo, f"sharded_weighted_median {method}, 0/1 weights",
+            lambda m=method: D.sharded_weighted_median(
+                xl, w01l, mesh, "data", method=m), key, cases,
+            _equal_to(wwant, sel.weighted_median(x, w01).value)
+            if lead else None)
+    margins = {}
+    if lead:
+        in_interval, margins = mass_interval(cpo, x, wd)
+        local_dense = sel.weighted_median(x, wd)
+        in_interval(local_dense)
+        local_margins = dict(margins)
+    dense = dist_drive(sel, cpo, "sharded_weighted_median binned, dense "
+                       "weights", lambda: D.sharded_weighted_median(
+                           xl, wdl, mesh, "data"), "wcp_histogram", cases,
+                       in_interval if lead else None)
+    if lead:
+        cases["sharded_weighted_median binned, dense weights"].update(
+            mass_interval=margins, local_engine_mass_interval=local_margins,
+            local_engine_value=float(local_dense.value),
+            equals_local_engine=same_bits(dense.value.reshape(1),
+                                          local_dense.value.reshape(1)))
+        del xsw, cumw, local_dense
+
+    # ---- multi-k sharded solves (K3/K4 and their legs at K targets) -----
+    want16 = xs[(ks16 - 1).long().to(DEVICE)] if lead else None
+    for method, key in (("binned", "cp_histogram_multi"),
+                        ("binned_polish", "cp_histogram_multi_sums"),
+                        ("cp", "cp_partials_multi")):
+        dist_drive(sel, cpo, f"sharded_quantiles K=16 {method}",
+                   lambda m=method: D.sharded_quantiles(
+                       xl, QS16, mesh, "data", method=m), key, cases,
+                   _equal_to(want16, sel.quantiles(x, QS16).value)
+                   if lead else None)
+    if lead:
+        xsw, cumw = sorted_mass(x, w01)
+        wwant16 = mass_oracle(xsw, cumw, wks16)
+        del xsw, cumw
+    for method, key in (("binned", "wcp_histogram_multi"),
+                        ("binned_polish", "wcp_histogram_multi_sums"),
+                        ("cp", "wcp_partials_multi")):
+        dist_drive(sel, cpo, f"sharded weighted quantiles K=16 {method}, "
+                   f"0/1 weights",
+                   lambda m=method: D.sharded_multi_order_statistic(
+                       xl, wks16, mesh, "data", method=m, weights=w01l),
+                   key, cases,
+                   _equal_to(wwant16, sel.weighted_quantiles(
+                       x, w01, QS16).value) if lead else None)
+    # the reference pins K = 8 deciles at 1 round with nbins 512 and
+    # cap_local 4096 at n = 2^20 (at 2^27 a 512th of the bracket holds
+    # far more than 4096 elements)
+    x8 = x[:DIST_K8_N]
+    x8l = x8.chunk(world)[rank].contiguous()
+    w8l = w01[:DIST_K8_N].chunk(world)[rank].contiguous()
+    ks8 = sel.ranks_from_quantiles(DECILES, DIST_K8_N)
+    W8 = float(w01[:DIST_K8_N].sum())
+    wks8 = torch.tensor(DECILES * W8, dtype=torch.float32, device=DEVICE)
+    if lead:
+        want8 = torch.sort(x8).values[(ks8 - 1).long().to(DEVICE)]
+        xsw, cumw = sorted_mass(x8, w01[:DIST_K8_N])
+        wwant8 = mass_oracle(xsw, cumw, wks8)
+    for label, fn, key, want in (
+            ("sharded_quantiles K=8 deciles n=2^20 nbins=512 cap 4096",
+             lambda: D.sharded_quantiles(
+                 x8l, DECILES, mesh, "data", nbins=DIST_K8_NBINS,
+                 cap_local=DIST_K8_CAP), "cp_histogram_multi",
+             want8 if lead else None),
+            ("sharded weighted deciles K=8 n=2^20 nbins=512 cap 4096",
+             lambda: D.sharded_multi_order_statistic(
+                 x8l, wks8, mesh, "data", nbins=DIST_K8_NBINS,
+                 cap_local=DIST_K8_CAP, weights=w8l),
+             "wcp_histogram_multi", wwant8 if lead else None)):
+        res = dist_drive(sel, cpo, label, fn, key, cases,
+                         _equal_to(want) if lead else None)
+        if int(res.iters.max()) != 1:
+            raise AssertionError(f"{label}: {int(res.iters.max())} rounds")
+
+    rec["checks_s"] = time.perf_counter() - t_checks
+
+    # ---- timings ---------------------------------------------------------
+    tm = {}
+    for label, fn in (
+            ("sharded_median binned", lambda: D.sharded_median(
+                xl, mesh, "data")),
+            ("sharded_median binned_polish", lambda: D.sharded_median(
+                xl, mesh, "data", method="binned_polish")),
+            ("sharded_median cp", lambda: D.sharded_median(
+                xl, mesh, "data", method="cp")),
+            ("sharded_weighted_median binned, dense weights",
+             lambda: D.sharded_weighted_median(xl, wdl, mesh, "data")),
+            ("sharded_quantiles K=16 binned", lambda: D.sharded_quantiles(
+                xl, QS16, mesh, "data"))):
+        tm[label] = {"ms": _timed_ms(fn),
+                     "breakdown": _breakdown(D, collectives, ops, fn)}
+    # the ladder of binned_polish's first round (every rank computes it)
+    e = polish_seed_edges(sel, D.ShardedEvaluator(xl, k, None)).reshape(-1)
+    dist.barrier()
+    if lead and DEVICE == "cuda":
+        # rank 0 alone (the others wait): the local engine on the whole
+        # array, and the sums legs at one ladder that binned_polish runs
+        tm["local median of 2^27, one rank"] = _timed_ms(
+            lambda: sel.median(x))
+        sums = {}
+        for leg, call in (
+                ("K3s", lambda d: cpo._whist_multi(
+                    xl, None, e[None], "cp_histogram_sums", True, d)),
+                ("K3ws", lambda d: cpo._whist_multi(
+                    xl, wdl, e[None], "wcp_histogram_sums", True, d))):
+            sums[leg] = {d: cuda_ms(lambda: call(d), 20)
+                         for d in ("sorted", "grouped")}
+            sums[leg]["layout"] = cpo.hist_multi_sums_layout(
+                e.numel(), 1 if leg == "K3s" else 2)
+            sums[leg]["bound_ms"] = bound(
+                xl.numel() * (4 if leg == "K3s" else 8), 0)[0]
+        sums["K3 twin (no sums)"] = cuda_ms(
+            lambda: cpo.cp_histogram(xl, e), 20)
+        sums["shape"] = f"({xl.numel()},) f32, the polished first-round " \
+                        f"ladder of {e.numel()} edges"
+        tm["sums legs at K=1"] = sums
+    dist.barrier()
+    rec["timings"] = tm
+    print(json.dumps(rec), flush=True)
+    dist.destroy_process_group()
+
+
+def _dist_spawn(world: int, backend: str, tmp: Path) -> list:
+    """Run ``world`` ranks of :func:`dist_rank_main` (their output to
+    files, so that no rank blocks on a full pipe); the ranks' records."""
+    logs = [(tmp / f"{backend}{r}.out", tmp / f"{backend}{r}.err")
+            for r in range(world)]
+    procs = []
+    try:
+        for r, (out, err) in enumerate(logs):
+            with open(out, "w") as fo, open(err, "w") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--dist-rank", str(r), "--dist-world", str(world),
+                     "--dist-init", str(tmp / f"init_{backend}"),
+                     "--dist-backend", backend], cwd=ROOT, stdout=fo,
+                    stderr=fe))
+        for p in procs:
+            p.wait(timeout=DIST_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [f"rank {r} (exit {p.returncode}):\n{out.read_text()[-1500:]}"
+              f"\n{err.read_text()[-3000:]}"
+              for r, (p, (out, err)) in enumerate(zip(procs, logs))
+              if p.returncode != 0]
+    if failed:
+        # every failed rank: the first to fail closes its peers' sockets
+        raise AssertionError(f"phase 18 {backend} failed:\n"
+                             + "\n".join(failed))
+    return [json.loads(out.read_text().strip().splitlines()[-1])
+            for out, _ in logs]
+
+
+def distributed_phase() -> dict:
+    """Phase 18: 4 gloo ranks on the one card (the kernels built once
+    here, before they start), then one NCCL rank; every rank's fields the
+    same bits.  Returns rank 0's record with the others' digests."""
+    import gc
+    import tempfile
+
+    # this process's cached blocks would be out of the ranks' reach
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = _dist_spawn(DIST_WORLD, "gloo", Path(tmp))
+        t_gloo = time.perf_counter() - t0
+        nccl = _dist_spawn(1, "nccl", Path(tmp))[0]
+    lead = ranks[0]
+    for other in ranks[1:]:
+        for label, case in lead["cases"].items():
+            if other["cases"][label]["digest"] != case["digest"]:
+                raise AssertionError(f"phase 18: {label} differs between "
+                                     f"rank 0 and rank {other['rank']}")
+            if other["cases"][label]["launches"] != case["launches"]:
+                raise AssertionError(f"phase 18: {label} launched "
+                                     f"differently on rank {other['rank']}")
+        for label, a in lead["robust_aggregate"].items():
+            if other["robust_aggregate"][label]["digest"] != a["digest"]:
+                raise AssertionError(f"phase 18: robust_aggregate {label} "
+                                     f"differs between ranks")
+    lead["gloo_ranks_s"] = t_gloo
+    lead["nccl"] = nccl
+    lead["per_rank_timings"] = [r["timings"] for r in ranks]
+    return lead
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--compare", type=Path, metavar="TREE",
@@ -4168,11 +4680,20 @@ def main() -> None:
     ap.add_argument("--times-of", type=Path, metavar="SRC",
                     help="print, as one JSON line, what --compare reads, "
                          "with the package under SRC")
+    # phase 18 runs this script as its ranks
+    ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-init", help=argparse.SUPPRESS)
+    ap.add_argument("--dist-backend", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: "
                          "torch.cuda.is_available() is false")
     sys.path.insert(0, str(args.times_of or ROOT / "src"))
+    if args.dist_rank is not None:
+        dist_rank_main(args.dist_rank, args.dist_world, args.dist_init,
+                       args.dist_backend)
+        return
     from repro_torch.core import objective as obj
     from repro_torch.core import selection as sel
     from repro_torch.core import stream
@@ -4348,6 +4869,32 @@ def main() -> None:
     (out_dir / "robust.json").write_text(json.dumps(
         {"device": name, "smi": smi, "phase_15": p15, "phase_16": p16,
          "phase_17": tr}) + "\n")
+
+    # phase 18: the distributed layer, 4 gloo ranks on the one card (the
+    # kernels are built above, before the ranks start) and one NCCL rank
+    t0 = time.perf_counter()
+    p18 = distributed_phase()
+    t18 = time.perf_counter() - t0
+    for label, case in p18["cases"].items():
+        log(f"  {label}: rounds {case['rounds']} status {case['status']} "
+            f"launches {case['launches']}")
+    for label, case in p18["nccl"]["cases"].items():
+        log(f"  {label}: rounds {case['rounds']} launches "
+            f"{case['launches']}")
+    log("robust_aggregate (ms, " + name + ", " + smi + "): "
+        + json.dumps(p18["robust_aggregate"]))
+    log("distributed timings (ms, rank 0, " + name + ", " + smi + "): "
+        + json.dumps(p18["timings"]))
+    log(f"phase 18 (distributed, 4 gloo ranks + 1 nccl rank) took "
+        f"{t18:.1f} s")
+    (out_dir / "distributed.json").write_text(json.dumps(
+        {"device": name, "smi": smi, "phase_18_s": t18, "phase_18": p18})
+        + "\n")
+    dist_launches = {}
+    for row, keys in DIST_KERNEL_KEYS.items():
+        per_case = {label: sum(case["launches"].get(key, 0) for key in keys)
+                    for label, case in p18["cases"].items()}
+        dist_launches[row] = {k: v for k, v in per_case.items() if v}
 
     kernels = [
         {"name": "hist_batched (K1)", "route": "cuda",
@@ -4622,6 +5169,10 @@ def main() -> None:
          "rows_alone_equal_batch": rows_ident,
          "nearest_library": "torch.sum(..., dim=1) of the same terms, whose "
                             "order follows the batch"})
+    for row in kernels:
+        if row["name"] in dist_launches:
+            # each sharded answer's launches on one rank (phase 18)
+            row["launches_per_sharded_answer"] = dist_launches[row["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
 """Selection engine of the port: objective, transforms, selection, the
-warm-started stream helpers, segmented selection and the robust consumers
-(``repro_torch.core.robust``)."""
+warm-started stream helpers, segmented selection, the robust consumers
+(``repro_torch.core.robust``) and the distributed layer on
+``torch.distributed`` (``repro_torch.core.distributed``)."""
 from repro_torch.core.objective import (
     FG,
     WFG,
     Evaluator,
     FnEvaluator,
     RowsEvaluator,
+    ShardedEvaluator,
     SharedEvaluator,
     eval_fg,
     eval_fg_batched,
@@ -46,7 +48,7 @@ __all__ = [
     "FG", "WFG", "eval_fg", "eval_fg_batched", "eval_partials",
     "fg_from_partials", "os_weights", "wfg_from_partials",
     "Evaluator", "FnEvaluator", "RowsEvaluator", "SharedEvaluator",
-    "Prior", "as_prior", "QuantileTracker", "reselect",
+    "ShardedEvaluator", "Prior", "as_prior", "QuantileTracker", "reselect",
     "SelectResult", "order_statistic", "select_rows",
     "multi_order_statistic", "quantiles", "median", "quantile",
     "topk_threshold", "segmented_order_statistic", "segmented_quantiles",

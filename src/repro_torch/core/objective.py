@@ -27,8 +27,11 @@ weighted leg (``weights=`` on either evaluator) element ``i`` has mass
 ``w_i``: the target ``k`` is a cumulative mass, the measure fields carry
 f32 (or f64) masses and the slopes put the subdifferential's zero at mass
 ``k`` (:func:`wfg_from_partials`).  :class:`RowsEvaluator` and
-:class:`SharedEvaluator` own their data; :class:`FnEvaluator` wraps
-closures (segmented selection's, over a segment-sorted layout).
+:class:`SharedEvaluator` own their data; :class:`ShardedEvaluator` owns
+one rank's shard of an array sharded over ``torch.distributed`` process
+groups (the distributed layer, :mod:`repro_torch.core.distributed`);
+:class:`FnEvaluator` wraps closures (segmented selection's, over a
+segment-sorted layout, and the distributed layer's).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from typing import Callable, NamedTuple, Optional, Protocol
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import _accum_dtype, _waccum_dtype
 
@@ -335,6 +339,106 @@ class SharedEvaluator:
             mean = compiled_mean(x)
         return (torch.amin(x).broadcast_to(shape),
                 torch.amax(x).broadcast_to(shape), mean.broadcast_to(shape))
+
+
+class ShardedEvaluator:
+    """This rank's shard of a 1-D array sharded over process groups: the
+    local fused pass, then a cross-rank sum of the additive partials.
+
+    ``B = 1`` view (a scalar pivot, 0-dim fields).  ``axes`` names the
+    groups (:mod:`repro_torch.core.collectives`: a ``ProcessGroup``, a
+    sequence of them, or ``None`` for the default group); every rank of
+    them constructs its evaluator and calls it in the same order.  No data
+    moves: the local passes are ``kernels.ops.fused_partials`` /
+    ``fused_histogram`` (their weighted twins with ``weights``, sharded
+    like the data), the K=1 views of kernels K4 and K3 on the card, and
+    the combine sums their small outputs across ranks
+    (:func:`collectives.psum`: integers exactly, f32 in rank order).  ``n``
+    is the global element count, ``W`` the global mass, ``k`` the target
+    (clipped as in :class:`SharedEvaluator`).
+    """
+
+    def __init__(self, x_local: torch.Tensor, k, axes, *, weights=None):
+        self.x_local = x = x_local.reshape(-1).contiguous()
+        self.axes = axes
+        dev = x.device
+        self.n = int(collectives.psum(
+            torch.tensor(x.numel(), dtype=torch.int64, device=dev), axes))
+        self.weighted = weights is not None
+        if self.weighted:
+            self.w_local = w = torch.as_tensor(weights, device=dev).reshape(
+                -1).broadcast_to(x.shape).contiguous()
+            dt = _weight_accum_dtype(x, w)
+            # the total mass is a cross-rank sum, as the element count
+            self.W = collectives.psum(torch.sum(w, dtype=dt), axes)
+            self.k = torch.minimum(torch.as_tensor(k, dtype=dt, device=dev),
+                                   self.W)
+        else:
+            self.k = torch.clamp(torch.as_tensor(k, device=dev).to(
+                torch.int64), 1, self.n).to(torch.int32)
+
+    def __call__(self, y: torch.Tensor) -> FG:
+        return self.combine(self.local_partials(y))
+
+    def local_partials(self, y: torch.Tensor):
+        """This shard's partials at the pivot ``y``, not yet summed across
+        ranks (the distributed finalize bounds the PER-SHARD in-bracket
+        count from them)."""
+        if self.weighted:
+            return ops.fused_weighted_partials(self.x_local, self.w_local, y)
+        return ops.fused_partials(self.x_local, y)
+
+    def combine(self, partials) -> FG:
+        """The cross-rank combine of the additive partials (the paper's
+        "partial sums from several GPUs are added"): four for counts, six
+        for the weighted leg."""
+        if self.weighted:
+            wsp, wsn, wlt, wle, lt, le = partials
+            f = collectives.psum(torch.stack([wsp, wsn, wlt, wle]), self.axes)
+            c = collectives.psum(torch.stack([lt, le]), self.axes)
+            return wfg_from_partials((f[0], f[1], f[2], f[3], c[0], c[1]),
+                                     self.W, self.k)
+        sp, sn, lt, le = partials
+        f = collectives.psum(torch.stack([sp, sn]), self.axes)
+        c = collectives.psum(torch.stack([lt, le]), self.axes)
+        return fg_from_partials((f[0], f[1], c[0], c[1]), self.n, self.k)
+
+    def local_histogram(self, edges, need_msum=False):
+        """This shard's ``(cnt, mass, msum)`` slot vectors against one
+        ladder ``(nbins + 1,)``, not yet summed across ranks; ``msum`` only
+        with ``need_msum`` (the polish)."""
+        if self.weighted:
+            return ops.fused_weighted_histogram(
+                self.x_local, self.w_local, edges, want_sums=need_msum)
+        cnt, bsum = ops.fused_histogram(self.x_local, edges,
+                                        want_sums=need_msum)
+        return cnt, cnt, bsum  # counting measure: the counts ARE the mass
+
+    def histogram(self, edges, need_msum=False, full_bracket=False):
+        """The binned pass over the GLOBAL array: the local histogram, then
+        its slot vectors summed across ranks (the per-slot sums only with
+        ``need_msum``)."""
+        cnt, mass, msum = self.local_histogram(edges, need_msum=need_msum)
+        c = collectives.psum(cnt, self.axes)
+        m = c if mass is cnt else collectives.psum(mass, self.axes)
+        return c, m, (collectives.psum(msum, self.axes) if need_msum
+                      else None)
+
+    def init_stats(self):
+        """Global ``(min, max, mean)``, the mean mass-weighted on the
+        weighted leg; its sum in the accumulation dtype, summed across
+        ranks in rank order."""
+        x, axes = self.x_local, self.axes
+        xmin = collectives.pmin(torch.amin(x), axes)
+        xmax = collectives.pmax(torch.amax(x), axes)
+        if self.weighted:
+            wx = collectives.psum(torch.sum(self.w_local * x,
+                                            dtype=self.W.dtype), axes)
+            mean = wx / torch.clamp(self.W, min=1e-30)
+        else:
+            mean = collectives.psum(torch.sum(x, dtype=_accum_dtype(x)),
+                                    axes) / self.n
+        return xmin, xmax, mean.to(x.dtype)
 
 
 class FnEvaluator:

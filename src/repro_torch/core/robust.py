@@ -26,7 +26,8 @@ PRNG key a ``torch.Generator`` (or an int seed) on the data's device, and
 its pytrees nested dicts, lists and tuples flattened here with dict keys
 sorted as ``jax.tree`` sorts them.  Every entry point computes on the
 device of the tensors it is given.  ``robust_aggregate`` (the distributed
-combine) is not ported yet.
+combine of per-replica gradients) runs on ``torch.distributed`` through
+:mod:`repro_torch.core.distributed`.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import selection
+from repro_torch.core import collectives, distributed, selection
 from repro_torch.core.objective import fg_from_partials
 from repro_torch.kernels import ops
 
@@ -636,3 +637,54 @@ def clip_by_quantile(tree, q: float = 0.99, *, maxit: int = 16,
     clipped = _tree_map(
         lambda g: torch.clamp(g, -thr.to(g.dtype), thr.to(g.dtype)), tree)
     return clipped, thr
+
+
+# ---------------------------------------------------------------------------
+# Distributed-training integrations
+# ---------------------------------------------------------------------------
+
+
+def robust_aggregate(tree, axes=None, *, method: str = "median",
+                     trim: float = 0.25, agg_impl: str = "gather"):
+    """Byzantine/straggler-robust combine of per-replica gradient pytrees.
+
+    Every rank of ``axes`` (a process group, a sequence of them, or
+    ``None`` for the default group; :mod:`repro_torch.core.collectives`)
+    calls it with its replica's gradients; the combined tree is
+    replicated.  ``method``: ``'mean'``, ``'median'`` (coordinate-wise,
+    ``distributed.median_across_axis``) or ``'trimmed'`` (the mean of the
+    replica values between the coordinate-wise ``k_lo``-th and
+    ``k_hi``-th order statistics, ``k_lo = max(int(trim * n_rep), 1)`` in
+    f32 as the reference forms it).  ``agg_impl`` is the across-axis
+    method (``'gather'``, ``'cp'``, ``'binned'`` or ``'auto'``).  The
+    means' f32 sums go through ``all_reduce`` in the backend's order."""
+    n_rep = collectives.axis_size(axes)
+
+    if method == "mean":
+        return _tree_map(
+            lambda g: collectives.psum_backend(g, axes) / n_rep, tree)
+
+    if method == "median":
+        return _tree_map(
+            lambda g: distributed.median_across_axis(g, axes,
+                                                     method=agg_impl), tree)
+
+    if method == "trimmed":
+        k_lo = max(int(np.float32(trim) * np.float32(n_rep)), 1)
+        k_hi = n_rep - k_lo + 1
+
+        def tmean(g):
+            lo = distributed.order_statistic_across_axis(
+                g, k_lo, axes, method=agg_impl)
+            hi = distributed.order_statistic_across_axis(
+                g, k_hi, axes, method=agg_impl)
+            keep = (g >= lo) & (g <= hi)
+            num = collectives.psum_backend(
+                torch.where(keep, g, torch.zeros((), dtype=g.dtype,
+                                                 device=g.device)), axes)
+            den = collectives.psum_backend(keep.to(g.dtype), axes)
+            return num / torch.clamp(den, min=1.0)
+
+        return _tree_map(tmean, tree)
+
+    raise ValueError(f"unknown method {method!r}")

@@ -66,8 +66,9 @@ concatenated array, the per-leaf regime) runs the same loops on a
 :class:`~repro_torch.core.objective.FnEvaluator` over a segment-sorted
 layout, in plain torch.
 
-Not ported yet: the distributed engine (``ShardedEvaluator`` and
-``repro.core.distributed``; see ROADMAP.md).
+The distributed layer (``ShardedEvaluator``, :mod:`repro_torch.core.
+distributed`) runs these loops on evaluators whose combine is a
+``torch.distributed`` collective.
 """
 from __future__ import annotations
 
@@ -241,7 +242,7 @@ def _live(s: BatchState, cap):
     return (~s.found_exact) & (s.cleR - s.cleL > cap) & (s.yR > s.yL)
 
 
-def _seed_state(ev: Evaluator):
+def _seed_state(ev: Evaluator, found0=None, t0=None):
     """Shared loop seed: analytic bracket/cut init from one stats pass.
 
     Returns ``(s0, xmin, xmax, kk, dtype, xmean)``.  Counting leg: the slopes
@@ -253,6 +254,10 @@ def _seed_state(ev: Evaluator):
     flatter than the truth, so the support lines stay lower bounds); the f
     seeds anchor on the weighted mean, which is returned for the polish's
     first cut (:func:`_seed_cut`).
+
+    ``found0`` / ``t0`` pre-seed rows whose answer is already certified
+    (``found_exact`` and ``t_exact``; the across-axis solver certifies the
+    extreme ranks before the loop), so those rows never go live.
     """
     xmin, xmax, xmean = ev.init_stats()
     shape = torch.broadcast_shapes(xmin.shape, ev.k.shape)
@@ -283,8 +288,12 @@ def _seed_state(ev: Evaluator):
         yR=xmax, fR=fR0, gR=gR0,
         cleL=torch.ones(shape, dtype=torch.int32, device=dev),
         cleR=_count_like(ev.n, torch.int32, shape, dev),
-        t_exact=torch.full(shape, float("nan"), dtype=dtype, device=dev),
-        found_exact=torch.zeros(shape, dtype=torch.bool, device=dev),
+        t_exact=(torch.full(shape, float("nan"), dtype=dtype, device=dev)
+                 if t0 is None else torch.as_tensor(t0, device=dev).to(
+                     dtype).broadcast_to(shape)),
+        found_exact=(torch.zeros(shape, dtype=torch.bool, device=dev)
+                     if found0 is None else torch.as_tensor(
+                         found0, device=dev).broadcast_to(shape)),
         iters=torch.zeros(shape, dtype=torch.int32, device=dev),
         it=0,
         tp=0.5 * (xmin + xmax), fp=torch.maximum(fL0, fR0),
@@ -364,6 +373,8 @@ def bracket_loop_batched(
     method: str = "cp",
     maxit: int = 64,
     cap=0,
+    found0: Optional[torch.Tensor] = None,
+    t0: Optional[torch.Tensor] = None,
     prior: Optional[Prior] = None,
 ):
     """Run the batched bracket-shrinking loop against an evaluator.
@@ -375,7 +386,9 @@ def bracket_loop_batched(
     right end moves; the measure is the evaluator's, compared in its own
     dtype.  Rows stop independently once
     certified or once ``count(y_L < x <= y_R) <= cap``; the loop ends when
-    no row is live or after ``maxit`` iterations.
+    no row is live or after ``maxit`` iterations.  ``found0`` / ``t0``
+    pre-seed rows whose answer is already certified, so they never go live
+    (:func:`_seed_state`).
 
     ``prior`` (warm start): the prior answer replaces the FIRST proposal
     only, and only where it is finite and strictly inside the open
@@ -385,7 +398,7 @@ def bracket_loop_batched(
     Returns ``(final BatchState, xmin, xmax)`` with per-row extremes.
     """
     propose = _PROPOSALS[method]
-    s, xmin, xmax, kk, dtype, _ = _seed_state(ev)
+    s, xmin, xmax, kk, dtype, _ = _seed_state(ev, found0, t0)
     pv0 = None if prior is None else _prior_to(prior, dtype, s.yL).value
     while s.it < maxit:
         lv = _live(s, cap)
@@ -575,6 +588,8 @@ def binned_loop_batched(
     nbins: int = DEF_NBINS,
     maxit: int = 16,
     cap=0,
+    found0: Optional[torch.Tensor] = None,
+    t0: Optional[torch.Tensor] = None,
     polish: bool = False,
     prior: Optional[Prior] = None,
 ):
@@ -610,9 +625,10 @@ def binned_loop_batched(
     cut (over the analytic polish seed) where it is finite and strictly
     inside the bracket.  Placement only, as the polish cut.
 
-    Returns ``(BatchState, xmin, xmax)``; ``iters`` counts histogram sweeps.
+    ``found0`` / ``t0`` as in :func:`bracket_loop_batched`.  Returns
+    ``(BatchState, xmin, xmax)``; ``iters`` counts histogram sweeps.
     """
-    s, xmin, xmax, kk, dtype, xmean = _seed_state(ev)
+    s, xmin, xmax, kk, dtype, xmean = _seed_state(ev, found0, t0)
     # Brackets narrow to realized edge values and the finalize recounts
     # against exactly those values, so the loop state must not round edges
     # through a storage dtype below the kernels' f32 (bf16 data would

@@ -1141,3 +1141,84 @@ def test_segmented_on_the_card(cuda, method):
     sums = plan.reduce(x[order])
     cpu = ref.GroupPlan(ss.cpu(), 16).reduce(x[order].cpu())
     assert torch.equal(sums.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+_SHARDED_RANK = r"""
+import datetime, json, sys
+import numpy as np, torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+rank, world = int(sys.argv[1]), int(sys.argv[2])
+init, what = sys.argv[3], sys.argv[4]
+dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
+                        world_size=world,
+                        timeout=datetime.timedelta(seconds=60))
+from repro_torch.core import distributed, selection
+from repro_torch.kernels import cp_objective
+mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+x = torch.from_numpy(np.random.default_rng(5).standard_normal(1 << 22)
+                     .astype(np.float32)).cuda()
+xl = x.chunk(world)[rank].contiguous()
+qs = [i / 17 for i in range(1, 17)]
+cp_objective.reset_launches()
+if what == "median":
+    res = distributed.sharded_median(xl, mesh, "data")
+else:
+    res = distributed.sharded_quantiles(xl, qs, mesh, "data")
+torch.cuda.synchronize()
+launches = {k: v for k, v in cp_objective.LAUNCHES.items() if v}
+if what == "median":
+    one = selection.median(x)
+    ks = torch.tensor([(x.numel() + 1) // 2])
+else:
+    one = selection.quantiles(x, qs)
+    ks = selection.ranks_from_quantiles(qs, x.numel())
+want = torch.sort(x).values[(ks - 1).long().cuda()]
+print(json.dumps({"value": res.value.reshape(-1).tolist(),
+                  "iters": res.iters.reshape(-1).tolist(),
+                  "status": res.status.reshape(-1).tolist(),
+                  "one": one.value.reshape(-1).tolist(),
+                  "want": want.tolist(), "launches": launches}))
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("what,kernel", [("median", "cp_histogram"),
+                                         ("quantiles", "cp_histogram_multi")])
+def test_sharded_two_ranks_on_the_card(cuda, tmp_path, what, kernel):
+    """Two gloo ranks on the one card (each shard a CUDA tensor): the
+    sharded median and 16 quantiles of 2^22 f32 equal the local engine on
+    the whole array and ``torch.sort``, every rank the same answer, and
+    each rank's binned rounds launch the K = 1 (median) or K = 16
+    (quantiles) view of K3 and nothing else."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    _build.build_all()  # once, before the ranks start
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SHARDED_RANK, str(r), "2",
+         str(tmp_path / "init"), what], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert outs[0] == outs[1]
+    r = outs[0]
+    assert r["value"] == r["one"] == r["want"]
+    assert 3 not in r["status"] and min(r["iters"]) >= 1
+    assert set(r["launches"]) == {kernel}, r["launches"]
+    assert r["launches"][kernel] == max(r["iters"])

@@ -38,33 +38,45 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_port_runs_with_jax_blocked():
+def test_port_runs_with_jax_blocked(tmp_path):
     """In a fresh interpreter where ``import jax`` fails, the whole port
-    imports (``core.robust`` included) and answers a CPU median and a CPU
-    segmented solve, and no ``repro`` module loads."""
+    imports (``core.robust`` and ``core.distributed`` included) and answers
+    a CPU median, a CPU segmented solve and a world-of-one gloo
+    ``sharded_median`` on the CPU, and no ``repro`` module loads."""
     code = """
 import sys
 sys.modules["jax"] = None
+import datetime
 import numpy as np
 import repro_torch
 import repro_torch.kernels._build, repro_torch.kernels.cp_objective
 import repro_torch.kernels.ops, repro_torch.kernels.ref
-import repro_torch.core.robust
+import repro_torch.core.robust, repro_torch.core.distributed
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.convert import from_numpy
-from repro_torch.core import selection
+from repro_torch.core import distributed, selection
 x = from_numpy(np.arange(9, dtype=np.float32)[::-1].copy(), device="cpu")
 assert float(selection.median(x).value) == 4.0
 assert selection.quantiles(x, [0.5, 1.0]).value.tolist() == [4.0, 8.0]
 seg = from_numpy(np.arange(9, dtype=np.int32) % 2, device="cpu")
 res = selection.segmented_order_statistic(x, seg, [1, 4], nsegs=2)
 assert res.value.tolist() == [0.0, 7.0], res
+dist.init_process_group("gloo", init_method="file://" + sys.argv[1],
+                        rank=0, world_size=1,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+res = distributed.sharded_median(x, mesh, "data")
+assert float(res.value) == 4.0 and int(res.status) != 3, res
+dist.destroy_process_group()
 loaded = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not loaded, loaded
 print("ok")
 """
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
-    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "init")],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
