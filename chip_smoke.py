@@ -205,7 +205,29 @@ Phases (any failure raises and the script exits non-zero):
    warm-up) with a breakdown into local passes and collectives, the local
    median on one rank, K3s/K3ws at one ladder in both designs; then one
    NCCL rank's ``sharded_median``.  Written to
-   chiprun_out/distributed.json.
+   chiprun_out/distributed.json;
+19. LM serving (``repro_torch.models`` in plain torch, f32, no TF32):
+   phi3-mini-3.8b at full width and depth (3,821,079,552 parameters, drawn
+   from a seeded CUDA generator) served by the launcher's loop
+   (``launch.serve.serve``, B = 4, prompt 16, gen 16), its per-token
+   latency p50 / p99 by ``median`` / ``quantile`` on the card with the
+   launch counts read from zero around the serve call: ``row_sums`` and
+   ``sum_blocks`` once an answer, K2 0 times (the ~29 latencies fit the
+   selection cap, so the cp loop runs no pass), no histogram kernel; each
+   value equal to ``torch.sort`` of the same latencies, none
+   NOT_CONVERGED; ``row_sums``, ``sum_blocks`` and K2 at the path's shape
+   (1, 29) against their plain versions; a second, longer window (prompt
+   1024, gen 128: a cache of 1152 slots, ~1150 timed steps) for the
+   percentiles' record; the same weights cut to 2 layers on the card and
+   through the port on the CPU, 4 decode steps (logits within
+   ``CARD_CPU_TOL`` of the largest |logit|, greedy tokens equal where the
+   top-2 margin is wider than twice that); the decode logits of a
+   64-token prompt against the prefill step's (``DECODE_TOL``), for
+   phi3-mini and for gemma2-2b (2,614,222,080 parameters: ring caches,
+   softcaps, tied embeddings, vocab 256000), which is served the same way;
+   one timed phi3-mini prefill of 4 x 1536 tokens; ms per decoded token
+   against the bytes bound of reading the parameters once, peak memory.
+   Each model is freed before the next.  Written to chiprun_out/serve.json.
 
 Every pass with f32 block partials (K2, K4, and the histogram legs with
 rows: K1w, K1s, K1ws, K3w, K3s, K3ws) sums them with one ``sum_blocks``
@@ -223,7 +245,9 @@ per SM); then the
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
+import dataclasses
 import functools
 import inspect
 import json
@@ -4660,6 +4684,450 @@ def distributed_phase() -> dict:
     return lead
 
 
+# ---------------------------------------------------------------------------
+# phase 19: LM serving (the dense decoder in plain torch; the latency
+# percentiles through the rows cp leg: row_sums and sum_blocks, no K2 pass)
+# ---------------------------------------------------------------------------
+
+SERVE_ARCHES = ("phi3-mini-3.8b", "gemma2-2b")
+SERVE_PARAMS = {"phi3-mini-3.8b": 3_821_079_552, "gemma2-2b": 2_614_222_080}
+SERVE_B, SERVE_P, SERVE_G = 4, 16, 16   # repro_torch.launch.serve defaults
+CARD_CPU_LAYERS, CARD_CPU_STEPS = 2, 4
+CARD_CPU_TOL = 1e-4        # |card - CPU| over the largest |logit|, f32
+DECODE_B, DECODE_LEN = 2, 64
+DECODE_TOL = 2e-3          # |decode - prefill| <= tol * (1 + |prefill|)
+PREFILL_B, PREFILL_LEN = 4, 1536   # two KV chunks of 1024, the 2nd padded
+F32_FLOPS = 67e12          # H100 SXM, f32 outside the tensor cores
+
+
+def served_percentiles(sel, cpo, served) -> dict:
+    """The served answer's p50 and p99: each equal to ``torch.sort`` of the
+    same latencies, none NOT_CONVERGED; then each answer alone with its
+    launch counts read from zero (they add up to the serve call's)."""
+    lat = served.latencies
+    srt = torch.sort(lat).values
+    n = lat.numel()
+    ranks = {"p50": (n + 1) // 2, "p99": int(sel.ranks_from_quantiles(0.99, n))}
+    calls = {"p50": sel.median, "p99": lambda x: sel.quantile(x, 0.99)}
+    out = {}
+    for label, res in (("p50", served.p50), ("p99", served.p99)):
+        check_status(sel, f"serve {label}", res)
+        want = srt[ranks[label] - 1].item()
+        if res.value.item() != want:
+            raise AssertionError(f"serve {label}: {res.value.item()} != "
+                                 f"sorted {want}")
+        cpo.reset_launches()
+        again = calls[label](lat)
+        torch.cuda.synchronize()
+        if again.value.item() != want:
+            raise AssertionError(f"serve {label} alone: {again.value.item()}")
+        out[label] = {"ms": want * 1e3, "rank": ranks[label],
+                      "iters": int(res.iters), "status": int(res.status),
+                      "launches": {k: v for k, v in cpo.LAUNCHES.items()
+                                   if v}}
+    return out
+
+
+SERVE_KERNELS = {"cp_partials_batched", "sum_blocks", "row_sums"}
+LONG_P, LONG_G = 1024, 128   # the longer window: a cache of 1152 slots
+
+
+def serve_and_select(sel, cpo, ref, launch, cfg, params, nbytes) -> dict:
+    """The launcher's loop at B = 4, prompt 16, gen 16 on ``params``, its
+    launch counts read from zero around the call: only the rows cp leg's
+    kernels (``SERVE_KERNELS``), ``row_sums`` once an answer (the counting
+    mean), ``sum_blocks`` once an answer and once a cp pass, K2 once a cp
+    pass.  The ~29 latencies fit the cap (``cap = min(cap, n)``), so the cp
+    loop certifies them with no pass, as the reference's does (iters 0,
+    the finalize sorts the bracket): K2 launches 0 times here.  The
+    percentiles against ``torch.sort``."""
+    cpo.reset_launches()
+    t0 = time.perf_counter()
+    served = launch.serve(cfg, SERVE_B, SERVE_P, SERVE_G, params=params,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cpo.LAUNCHES.items() if v}
+    if set(launches) - SERVE_KERNELS:
+        raise AssertionError(f"serve: kernels off the rows cp leg launched "
+                             f"{launches}")
+    passes = int(served.p50.iters) + int(served.p99.iters)
+    want = {"row_sums": 2, "sum_blocks": 2 + passes,
+            "cp_partials_batched": passes}
+    if any(launches.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"serve: launched {launches}, want {want} for "
+                             f"{passes} cp passes")
+    answers = served_percentiles(sel, cpo, served)
+    for key, count in launches.items():
+        alone = sum(a["launches"].get(key, 0) for a in answers.values())
+        if alone != count:
+            raise AssertionError(f"serve: {key} {count} launches, {alone} "
+                                 f"by the answers alone")
+    toks = served.tokens
+    if toks.shape != (SERVE_B, SERVE_P + SERVE_G - 1) or bool(
+            ((toks < 0) | (toks >= cfg.vocab)).any()):
+        raise AssertionError(f"serve: tokens {toks.shape} out of range")
+    return {"batch": SERVE_B, "prompt_len": SERVE_P, "gen": SERVE_G,
+            "wall_s": wall, "ms_per_token_p50": answers["p50"]["ms"],
+            "ms_per_token_p99": answers["p99"]["ms"],
+            "steps_timed": served.latencies.numel(),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes (the parameters read once a step)",
+            "latencies_ms": [v * 1e3 for v in served.latencies.tolist()],
+            "launches": launches, "cp_passes": passes, "answers": answers,
+            "first_row_tokens": toks[0].tolist(),
+            "kernels_at_this_shape": served_kernels(cpo, ref,
+                                                    served.latencies)}
+
+
+def served_kernels(cpo, ref, lat) -> dict:
+    """The served percentiles' kernels at the shape the path gives them,
+    one row of the n ~ 29 latencies, against their plain versions:
+    ``row_sums`` of the row (the counting mean's sum, as the path launches
+    it) and its weighted modes, ``sum_blocks`` of the row's partials
+    (``fg_blocks(n)`` blocks, as the path launches it) and of the n
+    latencies as n blocks, and K2 at (1, n) at the row's median and mean,
+    which the path would launch once the latencies outgrew the cap.  In
+    whole units of ``q`` microseconds (``q`` = 1 unless the weighted sums
+    would reach 2^24) every sum is exact in f32: the kernels' bits equal
+    the plain versions' and the exact sum; on the latencies in seconds
+    each sum is within its f32 chain of the f64 sum (``row_sums``: the
+    kernel's chain, ``sum_blocks``: nblk + 5 adds), K2's within
+    ``SUM_RTOL``."""
+    x = lat[None, :].contiguous()
+    n = x.shape[1]
+    q = 1.0
+    while float(torch.round(x * 1e6 / q).double().sum()) * 4 >= EXACT_TOTAL:
+        q *= 10
+    xi = torch.round(x * 1e6 / q)
+    exact = {"us": xi.double().sum(dim=1), "s": x.double().sum(dim=1)}
+    # row_sums, the sum of x, as the path launches it
+    got = cpo.row_sums(xi)
+    plain = ref.row_sums_ref(xi, dtype=torch.float32)
+    if not (same_bits(got, plain) and torch.equal(got.double(), exact["us"])):
+        raise AssertionError(f"row_sums at (1, {n}): {got.item()} != plain "
+                             f"{plain.item()}")
+    got = cpo.row_sums(x)
+    rs_bits = same_bits(got, ref.row_sums_ref(x, dtype=torch.float32))
+    rs_err = abs(got.item() - exact["s"].item()) / exact["s"].item()
+    rs_bound = (f32_chain(cpo, n) + 1) * 2.0 ** -24
+    if not rs_err <= rs_bound:
+        raise AssertionError(f"row_sums at (1, {n}): {rs_err} of the f64 "
+                             f"sum > {rs_bound}")
+    # its weighted modes at this shape, integer weights 1..4
+    wi = (torch.arange(n, device=DEVICE, dtype=torch.float32) % 4 + 1)[None]
+    c = xi[:, n // 2].contiguous()
+    for mode in ROW_MODES[1:]:
+        got = row_sums_call(cpo, xi, wi, c, mode)
+        plain = row_sums_plain(ref, xi, wi, c, mode, torch.float32)
+        if not same_bits(got, plain):
+            raise AssertionError(f"row_sums {mode} at (1, {n}): "
+                                 f"{got.item()} != plain {plain.item()}")
+    # sum_blocks: the row's partials as the path gives them, then n blocks
+    nblk = cpo.fg_blocks(n)
+    bounds = torch.linspace(0, n, nblk + 1).round().long().tolist()
+    part = torch.stack([xi[:, a:b].sum(dim=1) for a, b in
+                        zip(bounds[:-1], bounds[1:])], dim=1)[..., None]
+    got = cpo._sum_blocks(part.contiguous()).view(1)
+    if not torch.equal(got.double(), exact["us"]):
+        raise AssertionError(f"sum_blocks of the row's {nblk} partials: "
+                             f"{got.item()} != {exact['us'].item()}")
+    got = cpo._sum_blocks(xi.view(1, n, 1)).view(1)
+    if not torch.equal(got.double(), exact["us"]):
+        raise AssertionError(f"sum_blocks of {n} blocks: {got.item()}")
+    got = cpo._sum_blocks(x.view(1, n, 1)).view(1)
+    sb_err = abs(got.item() - exact["s"].item()) / exact["s"].item()
+    if not sb_err <= (n + 6) * 2.0 ** -24:
+        raise AssertionError(f"sum_blocks of {n} blocks: {sb_err} of the "
+                             f"f64 sum")
+    # K2 at (1, n): counts bit for bit, sums exact on an integer pivot in
+    # whole units, within SUM_RTOL else
+    k2_rel = 0.0
+    for label, data in (("us", xi), ("s", x)):
+        srt = torch.sort(data, dim=1).values
+        for pivot in (srt[:, (n - 1) // 2], (exact[label] / n).float()):
+            y = pivot.contiguous()
+            got = cpo.cp_partials_batched(data, y)
+            want = ref.cp_partials_batched_ref(data, y)
+            for g, w in zip(got[2:], want[2:]):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K2 counts at (1, {n}) differ")
+            integral = label == "us" and float(y) == round(float(y))
+            for g, w in zip(got[:2], want[:2]):
+                if integral and not same_bits(g, w):
+                    raise AssertionError(f"K2 sums at (1, {n}): {g.item()} "
+                                         f"!= plain {w.item()}")
+                torch.testing.assert_close(g, w, rtol=SUM_RTOL, atol=0)
+                if w.item() != 0:
+                    k2_rel = max(k2_rel, abs(g.item() - w.item())
+                                 / abs(w.item()))
+    torch.cuda.synchronize()
+    return {"shape": [1, n], "blocks": nblk, "unit_us": q,
+            "row_sums_rel_err_s": rs_err, "row_sums_bound": rs_bound,
+            "row_sums_bits_equal_plain_s": rs_bits,
+            "sum_blocks_rel_err_s": sb_err, "k2_max_rel_err": k2_rel,
+            "exact_in_whole_units": ["row_sums (x, mass, moment, le, lt)",
+                                     "sum_blocks", "K2 counts",
+                                     "K2 sums at the median"]}
+
+
+def long_window(sel, launch, cfg, params) -> dict:
+    """The launcher's loop over a longer window, for the record (the checks
+    use the launcher's defaults): prompt ``LONG_P``, gen ``LONG_G``, so
+    every step attends over a cache of ``LONG_P + LONG_G`` slots and
+    ~1150 steps are timed; their p50 / p99 by the port's selection, each
+    equal to ``torch.sort``, none NOT_CONVERGED."""
+    t0 = time.perf_counter()
+    served = launch.serve(cfg, SERVE_B, LONG_P, LONG_G, params=params,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lat = served.latencies
+    n = lat.numel()
+    srt = torch.sort(lat).values
+    out = {"batch": SERVE_B, "prompt_len": LONG_P, "gen": LONG_G,
+           "cache_slots": LONG_P + LONG_G, "steps_timed": n, "wall_s": wall}
+    for label, res, rank in (
+            ("p50", served.p50, (n + 1) // 2),
+            ("p99", served.p99, int(sel.ranks_from_quantiles(0.99, n)))):
+        check_status(sel, f"long window {label}", res)
+        if res.value.item() != srt[rank - 1].item():
+            raise AssertionError(f"long window {label}: "
+                                 f"{res.value.item()} != sorted")
+        out[f"ms_per_token_{label}"] = res.value.item() * 1e3
+        out[f"{label}_rank"] = rank
+        out[f"{label}_iters"] = int(res.iters)
+    out["max_ms"] = srt[-1].item() * 1e3
+    return out
+
+
+def card_against_cpu(model, transformer, train, plan, cfg, params) -> dict:
+    """Full width, ``CARD_CPU_LAYERS`` layers: the same weights on the card
+    and through the port on the CPU, ``CARD_CPU_STEPS`` decode steps on the
+    same tokens: logits within ``CARD_CPU_TOL`` of the largest |logit|,
+    greedy tokens equal wherever the CPU's top-2 margin exceeds twice it.
+    The cut shares the full model's embedding, first layers and final
+    norm."""
+    cfg_n = dataclasses.replace(cfg, n_layers=CARD_CPU_LAYERS)
+    sub = transformer.Decoder(params.embed,
+                              list(params.layers[:CARD_CPU_LAYERS]),
+                              params.final_norm)
+    cpu = copy.deepcopy(sub).to("cpu")
+    step = train.make_serve_step(cfg_n, plan)
+    toks = torch.randint(0, cfg.vocab, (SERVE_B, CARD_CPU_STEPS),
+                         generator=torch.Generator().manual_seed(191),
+                         dtype=torch.int32)
+    caches = [model.init_cache(cfg_n, SERVE_B, CARD_CPU_STEPS, plan,
+                               dtype=torch.float32, device=d)
+              for d in (DEVICE, "cpu")]
+    worst, decided = 0.0, 0
+    t0 = time.perf_counter()
+    for t in range(CARD_CPU_STEPS):
+        tg, lg, caches[0] = step(sub, caches[0], toks[:, t:t + 1].to(DEVICE),
+                                 t)
+        tc, lc, caches[1] = step(cpu, caches[1], toks[:, t:t + 1], t)
+        scale = max(1.0, lc.abs().max().item())
+        err = (lg.cpu() - lc).abs().max().item() / scale
+        if not err <= CARD_CPU_TOL:
+            raise AssertionError(f"card vs CPU step {t}: logits differ by "
+                                 f"{err} of the largest |logit|")
+        worst = max(worst, err)
+        top2 = lc[:, -1].topk(2).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * CARD_CPU_TOL * scale
+        if not torch.equal(tg.cpu()[sure], tc[sure]):
+            raise AssertionError(f"card vs CPU step {t}: greedy tokens differ")
+        decided += int(sure.sum())
+    return {"layers": CARD_CPU_LAYERS, "steps": CARD_CPU_STEPS,
+            "batch": SERVE_B, "tol": CARD_CPU_TOL, "max_rel_err": worst,
+            "tokens_compared": decided,
+            "tokens": CARD_CPU_STEPS * SERVE_B,
+            "cpu_threads": torch.get_num_threads(),
+            "s": time.perf_counter() - t0}
+
+
+def decode_against_prefill(model, train, plan, cfg, params) -> dict:
+    """Full width and depth: the decode logits of a ``DECODE_LEN``-token
+    prompt equal the prefill step's at the same positions, within
+    ``DECODE_TOL`` * (1 + |prefill|)."""
+    toks = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_LEN),
+                         generator=gen(193), device=DEVICE,
+                         dtype=torch.int32)
+    full = train.make_prefill_step(cfg, plan)(params, {"tokens": toks})
+    cache = model.init_cache(cfg, DECODE_B, DECODE_LEN, plan,
+                             dtype=torch.float32, device=DEVICE)
+    step = train.make_serve_step(cfg, plan)
+    worst_abs, worst = 0.0, 0.0
+    for t in range(DECODE_LEN):
+        _, lg, cache = step(params, cache, toks[:, t:t + 1], t)
+        want = full[:, t]
+        err = (lg[:, 0] - want).abs()
+        rel = (err / (1.0 + want.abs())).max().item()
+        if not rel <= DECODE_TOL:
+            raise AssertionError(f"decode vs prefill at {t}: {rel} > "
+                                 f"{DECODE_TOL}")
+        worst = max(worst, rel)
+        worst_abs = max(worst_abs, err.max().item())
+    return {"batch": DECODE_B, "tokens": DECODE_LEN, "tol": DECODE_TOL,
+            "max_abs_err": worst_abs, "max_err_over_1_plus_abs": worst,
+            "max_abs_logit": full.abs().max().item()}
+
+
+def timed_prefill(train, plan, cfg, params, total, nbytes) -> dict:
+    """One prefill of ``PREFILL_B`` x ``PREFILL_LEN`` tokens after a warm
+    one (host clock around a synchronized call), against its operations
+    bound: 2 flops per token and matrix weight, and the causal scores and
+    values of every layer (4 * B * H * hd * S(S+1)/2)."""
+    toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_LEN),
+                         generator=gen(197), device=DEVICE,
+                         dtype=torch.int32)
+    step = train.make_prefill_step(cfg, plan)
+    logits = step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    if logits.shape != (PREFILL_B, PREFILL_LEN, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill: logits {logits.shape} not finite")
+    del logits
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    del logits
+    matrix = total - (0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model)
+    S = PREFILL_LEN
+    flops = (2 * PREFILL_B * S * matrix + 4 * PREFILL_B * cfg.n_heads
+             * cfg.hd * S * (S + 1) // 2 * cfg.n_layers)
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"batch": PREFILL_B, "tokens": S, "ms": ms, "flops": flops,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "param_bytes_bound_ms": bytes_ms}
+
+
+def serving_record(p19: dict, name: str, smi: str) -> None:
+    """Log phase 19's numbers and write them to chiprun_out/serve.json."""
+    log("LM serving (ms, " + name + ", " + smi + "): " + json.dumps(
+        {arch: {"ms_per_token_p50_p99": [r["serve"]["ms_per_token_p50"],
+                                         r["serve"]["ms_per_token_p99"]],
+                "steps_timed": r["serve"]["steps_timed"],
+                "long_window_ms_per_token_p50_p99": [
+                    r["long_window"]["ms_per_token_p50"],
+                    r["long_window"]["ms_per_token_p99"]],
+                "long_window_steps_timed": r["long_window"]["steps_timed"],
+                "bound_ms": r["serve"]["bound_ms"],
+                "prefill": r.get("prefill"),
+                "peak_memory_gib": r["peak_memory_gib"]}
+         for arch, r in p19.items()}))
+    out = ROOT / "chiprun_out"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "serve.json").write_text(json.dumps(
+        {"device": name, "smi": smi, "phase_19": p19}) + "\n")
+
+
+PROFILE_STEPS = 3
+
+
+def decode_profile(model, train, plan, cfg, params) -> dict:
+    """Where a full-width decode step's time goes: ``torch.profiler`` over
+    ``PROFILE_STEPS`` serve steps (B = 4, a 32-slot cache, after warm
+    steps): the host clock per step, the device time per step (the sum of
+    the kernels' durations) and its share of the step, kernel launches per
+    step, and the device time of the matmuls (cuBLAS / CUTLASS kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = train.make_serve_step(cfg, plan)
+    cache = model.init_cache(cfg, SERVE_B, SERVE_P + SERVE_G, plan,
+                             dtype=torch.float32, device=DEVICE)
+    tok = torch.zeros((SERVE_B, 1), dtype=torch.int32, device=DEVICE)
+    for t in range(3):
+        tok, _, cache = step(params, cache, tok, t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(3, 3 + PROFILE_STEPS):
+            tok, _, cache = step(params, cache, tok, t)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}  # by the first 80 characters of the kernel's name
+    for e in kernels:
+        name = e.name[:80]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    device = sum(by_name.values()) / 1e3 / PROFILE_STEPS
+    gemm = sum(us for name, us in by_name.items()
+               if "gemm" in name.lower()) / 1e3 / PROFILE_STEPS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"steps": PROFILE_STEPS, "wall_ms_per_step": wall,
+            "device_ms_per_step": device,
+            "device_busy_share": device / wall if wall else None,
+            "kernels_per_step": len(kernels) / PROFILE_STEPS,
+            "gemm_ms_per_step": gemm,
+            "top_kernels_ms_per_step": {
+                name: us / 1e3 / PROFILE_STEPS for name, us in top}}
+
+
+def lm_serving_phase(sel, cpo, ref) -> dict:
+    """Phase 19: serve phi3-mini and gemma2 at full width and depth in f32,
+    each model freed before the next (see the module docstring)."""
+    from repro_torch import train
+    from repro_torch.analysis import param_counts
+    from repro_torch.configs import get_config, local_plan
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import model, transformer
+
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("f32 matmuls must not run in TF32")
+    plan = local_plan()
+    record = {}
+    for arch in SERVE_ARCHES:
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(gen(19), cfg, device=DEVICE)
+        total = param_counts(params, cfg)[0]
+        if total != SERVE_PARAMS[arch]:
+            raise AssertionError(f"{arch}: {total} parameters")
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in params.parameters())
+        rec = {"params": total, "param_bytes": nbytes, "dtype": "float32",
+               "n_layers": cfg.n_layers}
+        rec["serve"] = serve_and_select(sel, cpo, ref, launch, cfg, params,
+                                        nbytes)
+        rec["long_window"] = long_window(sel, launch, cfg, params)
+        if arch == SERVE_ARCHES[0]:
+            rec["card_vs_cpu"] = card_against_cpu(model, transformer, train,
+                                                  plan, cfg, params)
+        rec["decode_vs_prefill"] = decode_against_prefill(model, train, plan,
+                                                          cfg, params)
+        rec["decode_profile"] = decode_profile(model, train, plan, cfg,
+                                               params)
+        if arch == SERVE_ARCHES[0]:
+            rec["prefill"] = timed_prefill(train, plan, cfg, params, total,
+                                           nbytes)
+        rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["s"] = time.perf_counter() - t0
+        del params
+        record[arch] = rec
+        s = rec["serve"]
+        log(f"  {arch}: {total} params; ms per decoded token p50 "
+            f"{s['ms_per_token_p50']:.3f} p99 {s['ms_per_token_p99']:.3f} "
+            f"(bound {s['bound_ms']:.3f}; {s['steps_timed']} steps); "
+            f"cache of {rec['long_window']['cache_slots']} slots p50 "
+            f"{rec['long_window']['ms_per_token_p50']:.3f} p99 "
+            f"{rec['long_window']['ms_per_token_p99']:.3f} "
+            f"({rec['long_window']['steps_timed']} steps); percentiles' "
+            f"launches "
+            f"{ {k: a['launches'] for k, a in s['answers'].items()} }; "
+            f"kernels at (1, {s['steps_timed']}) "
+            f"{json.dumps(s['kernels_at_this_shape'])}; decode vs prefill {rec['decode_vs_prefill']['max_abs_err']:.3g}"
+            f"; peak {rec['peak_memory_gib']:.2f} GiB; {rec['s']:.1f} s; "
+            f"profile {json.dumps(rec['decode_profile'])}")
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--compare", type=Path, metavar="TREE",
@@ -4890,6 +5358,18 @@ def main() -> None:
     (out_dir / "distributed.json").write_text(json.dumps(
         {"device": name, "smi": smi, "phase_18_s": t18, "phase_18": p18})
         + "\n")
+    # phase 19: LM serving at full width (plain torch; the latency
+    # percentiles through row_sums and sum_blocks, K2 at their shape)
+    t0 = time.perf_counter()
+    p19 = lm_serving_phase(sel, cpo, ref)
+    log(f"phase 19 (LM serving) took {time.perf_counter() - t0:.1f} s")
+    serving_record(p19, name, smi)
+    served = p19[SERVE_ARCHES[0]]["serve"]["answers"]
+    served_shape = p19[SERVE_ARCHES[0]]["serve"]["kernels_at_this_shape"]
+
+    def per_served_answer(key):
+        return {k: a["launches"].get(key, 0) for k, a in served.items()}
+
     dist_launches = {}
     for row, keys in DIST_KERNEL_KEYS.items():
         per_case = {label: sum(case["launches"].get(key, 0) for key in keys)
@@ -4931,7 +5411,11 @@ def main() -> None:
          "bound_ms": tm["k2"]["bound"][0], "bound_by": tm["k2"]["bound"][1],
          "library_ms": None,
          "shape": "(1, 2^27) f32, one pivot",
-         "rows_64x2^20_ms": tm["k2_rows_ms"]},
+         "rows_64x2^20_ms": tm["k2_rows_ms"],
+         # phase 19: the served phi3-mini's per-token latency percentiles
+         "launches_per_served_answer": per_served_answer(
+             "cp_partials_batched"),
+         "served_shape_max_rel_err": served_shape["k2_max_rel_err"]},
         {"name": "hist_multi (K3)", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hist_multi.cu",
          "replaces": "src/repro/kernels/cp_objective.py:197",
@@ -5144,6 +5628,8 @@ def main() -> None:
          "rows_shape": f"{tuple(tsb['rows_shape'])} (K1w, the rows batch)",
          "rows_ms": tsb["rows_ms"], "rows_plain_ms": tsb["rows_plain_ms"],
          "rows_bound_ms": tsb["rows_bound"][0],
+         "launches_per_served_answer": per_served_answer("sum_blocks"),
+         "served_shape_rel_err": served_shape["sum_blocks_rel_err_s"],
          "nearest_library": "torch.sum over the block axis, which is also "
                             "the plain version (so library_ms is plain_ms)"})
     kernels.append(
@@ -5167,6 +5653,8 @@ def main() -> None:
          "sum_of_x_library_ms": trs["x"]["library_ms"],
          "sum_of_x_bound_ms": trs["x"]["bound"][0],
          "rows_alone_equal_batch": rows_ident,
+         "launches_per_served_answer": per_served_answer("row_sums"),
+         "served_shape_rel_err": served_shape["row_sums_rel_err_s"],
          "nearest_library": "torch.sum(..., dim=1) of the same terms, whose "
                             "order follows the batch"})
     for row in kernels:
