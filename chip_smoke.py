@@ -227,7 +227,30 @@ Phases (any failure raises and the script exits non-zero):
    softcaps, tied embeddings, vocab 256000), which is served the same way;
    one timed phi3-mini prefill of 4 x 1536 tokens; ms per decoded token
    against the bytes bound of reading the parameters once, peak memory.
-   Each model is freed before the next.  Written to chiprun_out/serve.json.
+   Each model is freed before the next.  Written to chiprun_out/serve.json;
+20. LM training (``repro_torch.train``, ``optim``, ``data``,
+   ``checkpoint``; plain torch, f32, no TF32): phi3-mini's first 16 of 32
+   layers at full width (2,009,041,920 parameters from a seeded CUDA
+   generator), ``remat='full'``, AdamW with an f32 master, the quantile
+   clip (q 0.99, 12 cutting-plane passes), B = 4, S = 1024 from
+   ``SyntheticPipeline``: one warm-up step and 3 timed steps through
+   ``fit`` (no checkpoints), the losses finite and falling; ``fit``'s own
+   p50 / p99 of the step times (by ``median`` / ``quantile`` on the card)
+   equal to ``torch.sort``'s, their launches counted from zero around the
+   timed ``fit`` and held exactly as phase 19's (``row_sums`` 2,
+   ``sum_blocks`` 2 + cp passes, K2 once a cp pass), and ``row_sums``,
+   ``sum_blocks`` and K2 held against their plain versions on the
+   (1, 3) row of step times (``served_kernels``); tokens/s against the
+   operations bound (``train_flops``, 67 TFLOP/s); the gradients, the
+   clip and the optimizer timed apart with CUDA events; peak memory; the
+   same step twice from one state (bits of the loss and ``clip_thr``
+   recorded, not required); the 2-layer cut card against CPU, 2 steps
+   (loss within ``TRAIN_LOSS_RTOL``, ``clip_thr`` within
+   ``TRAIN_THR_RTOL``, every parameter within 0.05 lr a step and all but
+   2% within 1e-4 lr); a reduced config's ``fit`` with a
+   ``CheckpointManager`` in a temporary directory stopped after step 4 of
+   8 and resumed: the same losses and weights as an uninterrupted run, bit
+   for bit.  Written to chiprun_out/train.json.
 
 Every pass with f32 block partials (K2, K4, and the histogram legs with
 rows: K1w, K1s, K1ws, K3w, K3s, K3ws) sums them with one ``sum_blocks``
@@ -4781,8 +4804,9 @@ def serve_and_select(sel, cpo, ref, launch, cfg, params, nbytes) -> dict:
 
 
 def served_kernels(cpo, ref, lat) -> dict:
-    """The served percentiles' kernels at the shape the path gives them,
-    one row of the n ~ 29 latencies, against their plain versions:
+    """The percentiles' kernels at the shape the path gives them, one row
+    of n times (phase 19: the ~29 served latencies; phase 20: the 3 timed
+    step times), against their plain versions:
     ``row_sums`` of the row (the counting mean's sum, as the path launches
     it) and its weighted modes, ``sum_blocks`` of the row's partials
     (``fg_blocks(n)`` blocks, as the path launches it) and of the n
@@ -4911,7 +4935,7 @@ def card_against_cpu(model, transformer, train, plan, cfg, params) -> dict:
     cfg_n = dataclasses.replace(cfg, n_layers=CARD_CPU_LAYERS)
     sub = transformer.Decoder(params.embed,
                               list(params.layers[:CARD_CPU_LAYERS]),
-                              params.final_norm)
+                              params.final_norm, len(cfg.unit))
     cpu = copy.deepcopy(sub).to("cpu")
     step = train.make_serve_step(cfg_n, plan)
     toks = torch.randint(0, cfg.vocab, (SERVE_B, CARD_CPU_STEPS),
@@ -5126,6 +5150,343 @@ def lm_serving_phase(sel, cpo, ref) -> dict:
             f"profile {json.dumps(rec['decode_profile'])}")
     torch.cuda.empty_cache()
     return record
+
+
+# ---------------------------------------------------------------------------
+# phase 20: LM training (plain torch on cuBLAS, f32 without TF32; the
+# step-time percentiles through row_sums and sum_blocks, K2 at their shape)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_LAYERS = "phi3-mini-3.8b", 16
+TRAIN_PARAMS = 2_009_041_920   # 16 of phi3-mini's 32 layers at full width
+TRAIN_B, TRAIN_S = 4, 1024     # 4,096 tokens a step
+TRAIN_TIMED = 3                # after one warm-up step
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_THR_RTOL = 1e-3          # 12 cutting-plane passes over other sums
+CUT_LAYERS, CUT_STEPS, CUT_B, CUT_S = 2, 2, 1, 128
+CKPT_STEPS, CKPT_STOP = 8, 4
+TRAIN_KERNELS = {"row_sums", "sum_blocks", "cp_partials_batched"}
+
+
+def train_flops(cfg, B: int, S: int) -> int:
+    """A train step's operations: 6 flops per token and matrix weight
+    (forward and backward; the embedding's gather is no matmul), and the
+    causal scores and values of every layer, forward and backward (3 x 4 *
+    B * H * hd * S(S+1)/2).  Remat's second forward is not counted: the
+    bound is the work the step needs."""
+    d, H, E, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    layer = d * H * hd * 2 + d * E * hd * 2 + 3 * d * cfg.d_ff
+    matrix = cfg.n_layers * layer + d * cfg.vocab
+    attn = 3 * 4 * B * H * hd * S * (S + 1) // 2 * cfg.n_layers
+    return 6 * matrix * B * S + attn
+
+
+def event_ms(fn):
+    """(fn(), its ms between CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def train_launches(launches: dict, passes: int, label: str) -> dict:
+    """The launches of one logged step, as ``serve_and_select`` holds the
+    served ones: only the rows cp leg's kernels (``TRAIN_KERNELS``),
+    ``row_sums`` once a percentile (the counting mean), ``sum_blocks`` once
+    a percentile and once a cp pass, K2 once a cp pass (``passes``, from
+    ``fit``'s record).  The quantile clip launches none of them."""
+    if set(launches) - TRAIN_KERNELS:
+        raise AssertionError(f"{label}: kernels off the rows cp leg "
+                             f"launched {launches}")
+    want = {"row_sums": 2, "sum_blocks": 2 + passes,
+            "cp_partials_batched": passes}
+    if any(launches.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"{label}: launched {launches}, want {want} "
+                             f"for {passes} cp passes")
+    return launches
+
+
+def params_against(got, want, lr: float, steps: int, label: str) -> dict:
+    """Every parameter within 0.05 lr a step of ``want``'s and all but 2%
+    within 1e-4 lr (Adam's m / (sqrt(v) + eps) magnifies gradients near
+    eps; tests/test_torch_train.py holds the port to the reference so)."""
+    far = total = 0
+    worst = 0.0
+    want = dict(want.named_parameters())
+    for n, p in got.named_parameters():
+        d = (p.detach().to(want[n].device) - want[n].detach()).abs()
+        worst = max(worst, d.max().item())
+        far += int((d > 1e-4 * lr).sum())
+        total += d.numel()
+    if not (worst <= 0.05 * lr * steps and far <= 0.02 * total):
+        raise AssertionError(f"{label}: parameters differ by {worst} "
+                             f"({far} of {total} beyond 1e-4 lr)")
+    return {"max_abs_diff": worst, "max_abs_diff_over_lr": worst / lr,
+            "share_beyond_1e-4_lr": far / total}
+
+
+def train_step_twice(step_mod, step, state, batch, cfg, plan) -> dict:
+    """The same train step twice from one state: the parameters are kept
+    on the host and put back before the second run (a step's loss and
+    clip threshold depend on nothing else); whether the loss and
+    ``clip_thr`` agree bit for bit, and where not, whether two forward
+    losses do and which gradient leaves differ between two backward
+    passes (the op to name)."""
+    named = dict(state.params.named_parameters())
+    host = {n: p.detach().to("cpu", copy=True) for n, p in named.items()}
+
+    def put_back():
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(host[n])
+
+    runs = []
+    for _ in range(2):
+        put_back()
+        state, m = step(state, batch)
+        runs.append({k: v.detach().clone() for k, v in m.items()})
+    out = {k: same_bits(runs[0][k], runs[1][k]) for k in ("loss", "clip_thr")}
+    out["values"] = {k: [r[k].item() for r in runs]
+                     for k in ("loss", "clip_thr")}
+    if not (out["loss"] and out["clip_thr"]):
+        put_back()
+        dev_batch = step_mod._on_device(batch, DEVICE)
+        a = step_mod.loss_and_grads(state.params, dev_batch, cfg, plan)
+        b = step_mod.loss_and_grads(state.params, dev_batch, cfg, plan)
+        out["forward_loss_equal"] = same_bits(a[0], b[0])
+        out["differing_grad_leaves"] = [
+            n for n in a[2] if not same_bits(a[2][n], b[2][n])]
+        del a, b
+    del host
+    return out
+
+
+def lm_training_phase(cpo, ref) -> dict:
+    """Phase 20: train phi3-mini's first 16 layers at full width through
+    ``fit`` (see the module docstring), its step-time percentiles' kernels
+    held against their plain versions at the row ``fit`` gave them
+    (``served_kernels``), then the 2-layer cut card against CPU and a
+    checkpoint resume on a reduced config."""
+    import tempfile
+
+    from repro_torch.analysis import param_counts
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, local_plan
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticPipeline, batch_for_shape
+    from repro_torch.models import model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainState, fit, make_train_step
+    from repro_torch.train import step as step_mod
+
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("f32 matmuls must not run in TF32")
+    plan = local_plan()
+    rec = {}
+    t_phase = time.perf_counter()
+
+    # ---- 16 layers at full width, B x S tokens a step, through fit ------
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS,
+                              remat="full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(gen(20), cfg, device=DEVICE)
+    total = param_counts(params, cfg)[0]
+    if total != TRAIN_PARAMS:
+        raise AssertionError(f"phase 20: {total} parameters")
+    opt = AdamW(master_weights=True)
+    state = TrainState(params=params, opt=opt.init(params), step=0)
+    step = make_train_step(cfg, plan, opt, clip="quantile", clip_q=0.99,
+                           clip_maxit=12)
+    shape = ShapeConfig("phase20", TRAIN_S, TRAIN_B, "train")
+    pipe = SyntheticPipeline(cfg, shape, seed=20)
+    logs = []
+    try:
+        warm = fit(train_step=step, state=state, pipeline=pipe, steps=1,
+                   log_every=10 ** 9, log_fn=logs.append)
+        cpo.reset_launches()
+        timed = fit(train_step=step, state=warm["state"], pipeline=pipe,
+                    steps=1 + TRAIN_TIMED, log_every=1 + TRAIN_TIMED,
+                    log_fn=logs.append)
+        launches = {k: v for k, v in cpo.LAUNCHES.items() if v}
+    finally:
+        pipe.close()
+    if len(timed["percentiles"]) != 1:
+        raise AssertionError(f"phase 20: {timed['percentiles']} logs")
+    pct = timed["percentiles"][-1]
+    launches = train_launches(launches, pct["passes"], "phase 20 fit")
+    state = timed["state"]
+    losses = warm["losses"] + timed["losses"]
+    metrics = warm["metrics"] + timed["metrics"]
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 20: losses {losses}")
+    # fit's own percentiles of the timed steps, against a sort; their
+    # kernels at this row's shape against the plain versions (with n <=
+    # cap the finalize sorts the bracket, so the answers alone would not
+    # show a wrong sum)
+    ts = torch.tensor(timed["times"], dtype=torch.float32)
+    srt = torch.sort(ts).values
+    n = ts.numel()
+    for key, rank in (("p50", (n + 1) // 2), ("p99", math.ceil(0.99 * n))):
+        if pct[key] != srt[rank - 1].item():
+            raise AssertionError(f"phase 20: fit's {key} {pct[key]} != "
+                                 f"sorted {srt[rank - 1].item()}")
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    bound_s = flops / F32_FLOPS
+    tokens = TRAIN_B * TRAIN_S
+    rec["fit"] = {
+        "arch": TRAIN_ARCH, "n_layers": TRAIN_LAYERS, "params": total,
+        "batch": TRAIN_B, "seq": TRAIN_S, "tokens_per_step": tokens,
+        "optimizer": "AdamW, master_weights", "clip": "quantile 0.99, 12",
+        "remat": cfg.remat, "dtype": "float32",
+        "losses": losses, "loss_falls": losses[-1] < losses[0],
+        "loss_falls_every_step": all(b < a for a, b in zip(losses,
+                                                           losses[1:])),
+        "clip_thr": [m["clip_thr"] for m in metrics],
+        "warm_step_s": warm["times"][0], "step_s": timed["times"],
+        "step_ms_p50": pct["p50"] * 1e3, "step_ms_p99": pct["p99"] * 1e3,
+        "tokens_per_s_p50": tokens / pct["p50"],
+        "flops": flops, "bound_ms": bound_s * 1e3,
+        "bound_by": "operations (f32, 67 TFLOP/s)",
+        "bound_tokens_per_s": tokens / bound_s,
+        "step_over_bound": pct["p50"] / bound_s,
+        "launches_per_log": launches, "cp_passes": pct["passes"],
+        "kernels_at_this_shape": served_kernels(cpo, ref, ts.to(DEVICE)),
+        "log": logs}
+
+    # ---- the step's parts apart, with CUDA events -----------------------
+    batch = step_mod._on_device(batch_for_shape(cfg, shape, seed=20,
+                                                step=1 + TRAIN_TIMED), DEVICE)
+    (loss, _, grads), grads_ms = event_ms(
+        lambda: step_mod.loss_and_grads(params, batch, cfg, plan))
+    clip_ms = []
+    for _ in range(2):
+        # the last run's clipped tree freed first: as in a step, one is held
+        clipped = None
+        (clipped, extra), ms = event_ms(
+            lambda: step_mod.clip_grads(grads, "quantile", 0.99, 12))
+        clip_ms.append(ms)
+    del grads
+    _, opt_ms = event_ms(lambda: opt.update_(clipped, state.opt, params))
+    del clipped
+    step_ms = pct["p50"] * 1e3
+    rec["parts"] = {"grads_ms": grads_ms, "clip_ms": clip_ms[-1],
+                    "clip_ms_runs": clip_ms, "optimizer_ms": opt_ms,
+                    "grads_share": grads_ms / step_ms,
+                    "clip_share": clip_ms[-1] / step_ms,
+                    "optimizer_share": opt_ms / step_ms}
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # ---- the same step twice from one state -----------------------------
+    rec["determinism"] = train_step_twice(
+        step_mod, step, state, batch_for_shape(cfg, shape, seed=20, step=9),
+        cfg, plan)
+    del state, params, opt, step, batch, warm, timed
+    torch.cuda.empty_cache()
+
+    # ---- the 2-layer cut at full width, card against CPU ----------------
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    cut_shape = ShapeConfig("cut", CUT_S, CUT_B, "train")
+    lr = 3e-4
+    cpu = model.init(21, cut, device="cpu")
+    sides = {"cuda": copy.deepcopy(cpu).to(DEVICE), "cpu": cpu}
+    seen = {}
+    for dev, p in sides.items():
+        o = AdamW(lr=lr)
+        st = TrainState(params=p, opt=o.init(p), step=0)
+        fn = make_train_step(cut, plan, o, clip="quantile")
+        ms = []
+        t1 = time.perf_counter()
+        for i in range(CUT_STEPS):
+            st, m = fn(st, batch_for_shape(cut, cut_shape, seed=21, step=i))
+            ms.append({k: v.item() for k, v in m.items()})
+        seen[dev] = (ms, time.perf_counter() - t1)
+    worst = {"loss": 0.0, "clip_thr": 0.0}
+    for mg, mc in zip(seen["cuda"][0], seen["cpu"][0]):
+        for k, tol in (("loss", TRAIN_LOSS_RTOL),
+                       ("clip_thr", TRAIN_THR_RTOL)):
+            err = abs(mg[k] - mc[k]) / abs(mc[k])
+            if not err <= tol:
+                raise AssertionError(f"phase 20 card vs CPU: {k} "
+                                     f"{mg[k]} vs {mc[k]}")
+            worst[k] = max(worst[k], err)
+    rec["card_vs_cpu"] = {
+        "layers": CUT_LAYERS, "steps": CUT_STEPS, "batch": CUT_B,
+        "seq": CUT_S, "lr": lr, "loss_rel_err": worst["loss"],
+        "clip_thr_rel_err": worst["clip_thr"],
+        "loss_tol": TRAIN_LOSS_RTOL, "clip_thr_tol": TRAIN_THR_RTOL,
+        **params_against(sides["cuda"], sides["cpu"], lr, CUT_STEPS,
+                         "phase 20 card vs CPU"),
+        "card_s": seen["cuda"][1], "cpu_s": seen["cpu"][1],
+        "cpu_threads": torch.get_num_threads(),
+        "s": time.perf_counter() - t0}
+    del sides, cpu
+    torch.cuda.empty_cache()
+
+    # ---- a checkpoint resume on the card, reduced config ----------------
+    rcfg = get_config(TRAIN_ARCH).reduced()
+    rshape = ShapeConfig("resume", 32, 2, "train")
+
+    def run(steps, ckpt, seed):
+        p = model.init(seed, rcfg, device=DEVICE)
+        o = AdamW(lr=1e-2)
+        st = TrainState(params=p, opt=o.init(p), step=0)
+        pl = SyntheticPipeline(rcfg, rshape, seed=22)
+        try:
+            return fit(train_step=make_train_step(rcfg, plan, o,
+                                                  clip="quantile"),
+                       state=st, pipeline=pl, steps=steps, ckpt=ckpt,
+                       ckpt_every=2, log_every=10 ** 9,
+                       log_fn=lambda line: None)
+        finally:
+            pl.close()
+
+    full = run(CKPT_STEPS, None, 22)
+    with tempfile.TemporaryDirectory() as tmp:
+        first = run(CKPT_STOP, CheckpointManager(tmp), 22)
+        second = run(CKPT_STEPS, CheckpointManager(tmp), 23)
+        kept = CheckpointManager(tmp).steps()
+    resumed = first["losses"] + second["losses"]
+    final_equal = all(torch.equal(a, b) for a, b in zip(
+        full["state"].params.parameters(),
+        second["state"].params.parameters()))
+    if resumed != full["losses"] or not final_equal:
+        raise AssertionError(f"phase 20 resume: {resumed} != "
+                             f"{full['losses']} (weights equal: "
+                             f"{final_equal})")
+    rec["resume"] = {"steps": CKPT_STEPS, "stopped_after": CKPT_STOP,
+                     "losses": full["losses"], "resumed_losses": resumed,
+                     "final_weights_equal": final_equal,
+                     "checkpoints_kept": kept}
+    rec["s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def training_record(p20: dict, name: str, smi: str) -> None:
+    """Log phase 20's numbers and write them to chiprun_out/train.json."""
+    f, parts = p20["fit"], p20["parts"]
+    log("LM training (ms, " + name + ", " + smi + "): " + json.dumps(
+        {"step_ms_p50_p99": [f["step_ms_p50"], f["step_ms_p99"]],
+         "tokens_per_s": f["tokens_per_s_p50"],
+         "bound_ms": f["bound_ms"], "step_over_bound": f["step_over_bound"],
+         "grads_ms": parts["grads_ms"], "clip_ms": parts["clip_ms"],
+         "optimizer_ms": parts["optimizer_ms"],
+         "clip_share": parts["clip_share"],
+         "optimizer_share": parts["optimizer_share"],
+         "losses": f["losses"], "clip_thr": f["clip_thr"],
+         "peak_memory_gib": p20["peak_memory_gib"],
+         "launches_per_log": f["launches_per_log"],
+         "kernels_at_this_shape": f["kernels_at_this_shape"],
+         "determinism": p20["determinism"],
+         "card_vs_cpu": p20["card_vs_cpu"], "resume": p20["resume"]}))
+    out = ROOT / "chiprun_out"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "train.json").write_text(json.dumps(
+        {"device": name, "smi": smi, "phase_20": p20}) + "\n")
 
 
 def main() -> None:
@@ -5366,6 +5727,14 @@ def main() -> None:
     serving_record(p19, name, smi)
     served = p19[SERVE_ARCHES[0]]["serve"]["answers"]
     served_shape = p19[SERVE_ARCHES[0]]["serve"]["kernels_at_this_shape"]
+    # phase 20: LM training at full width (plain torch; the step-time
+    # percentiles through row_sums and sum_blocks)
+    t0 = time.perf_counter()
+    p20 = lm_training_phase(cpo, ref)
+    log(f"phase 20 (LM training) took {time.perf_counter() - t0:.1f} s")
+    training_record(p20, name, smi)
+    train_log = p20["fit"]["launches_per_log"]
+    train_shape = p20["fit"]["kernels_at_this_shape"]
 
     def per_served_answer(key):
         return {k: a["launches"].get(key, 0) for k, a in served.items()}
@@ -5415,7 +5784,10 @@ def main() -> None:
          # phase 19: the served phi3-mini's per-token latency percentiles
          "launches_per_served_answer": per_served_answer(
              "cp_partials_batched"),
-         "served_shape_max_rel_err": served_shape["k2_max_rel_err"]},
+         "served_shape_max_rel_err": served_shape["k2_max_rel_err"],
+         # phase 20: the step-time percentiles of fit's logged step
+         "launches_per_train_log": train_log.get("cp_partials_batched", 0),
+         "train_shape_max_rel_err": train_shape["k2_max_rel_err"]},
         {"name": "hist_multi (K3)", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hist_multi.cu",
          "replaces": "src/repro/kernels/cp_objective.py:197",
@@ -5630,6 +6002,8 @@ def main() -> None:
          "rows_bound_ms": tsb["rows_bound"][0],
          "launches_per_served_answer": per_served_answer("sum_blocks"),
          "served_shape_rel_err": served_shape["sum_blocks_rel_err_s"],
+         "launches_per_train_log": train_log.get("sum_blocks", 0),
+         "train_shape_rel_err": train_shape["sum_blocks_rel_err_s"],
          "nearest_library": "torch.sum over the block axis, which is also "
                             "the plain version (so library_ms is plain_ms)"})
     kernels.append(
@@ -5655,6 +6029,8 @@ def main() -> None:
          "rows_alone_equal_batch": rows_ident,
          "launches_per_served_answer": per_served_answer("row_sums"),
          "served_shape_rel_err": served_shape["row_sums_rel_err_s"],
+         "launches_per_train_log": train_log.get("row_sums", 0),
+         "train_shape_rel_err": train_shape["row_sums_rel_err_s"],
          "nearest_library": "torch.sum(..., dim=1) of the same terms, whose "
                             "order follows the batch"})
     for row in kernels:

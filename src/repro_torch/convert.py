@@ -6,7 +6,8 @@ the CPU silently.  The selection path has no learned parameters; the state
 that crosses between the reference and the port is input arrays and
 results, so :func:`select_result_from_numpy` carries a result across,
 and :func:`prior_from_numpy` a warm-start prior.  The LM substrate's
-weights cross through :func:`params_from_numpy`.
+weights cross through :func:`params_from_numpy`, an optimizer's state
+through :func:`opt_state_from_numpy`.
 """
 from __future__ import annotations
 
@@ -94,4 +95,78 @@ def params_from_numpy(tree, cfg, device=None):
     emb = tree["embed"]
     embed = layers.Embed(t(emb["embedding"]),
                          None if cfg.tie_embeddings else t(emb["unembed"]))
-    return transformer.Decoder(embed, blocks, t(tree["final_norm"]))
+    return transformer.Decoder(embed, blocks, t(tree["final_norm"]),
+                               len(cfg.unit))
+
+
+def _leaf_paths(tree, prefix=()):
+    """(path, leaf) of a nested dict / list, in sorted-key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def named_from_numpy(tree, cfg, *, stacked: bool = False):
+    """The reference's parameter-shaped pytree (params, or an optimizer's
+    ``m`` / ``v`` / ``master``) as ``{port name: numpy array}``: leaf
+    ``units/i/<rest>``, stacked over ``n_units``, becomes
+    ``layers.{u * len(unit) + i}.<rest>`` (as :func:`params_from_numpy`
+    unstacks it), ``rem_i/<rest>`` the layer after the units, ``embed/*``
+    and ``final_norm`` keep their names.  With ``stacked=True`` a units
+    leaf stays whole under its group key ``units.{i}.<rest>`` (the port's
+    ``Decoder.param_groups()`` keys)."""
+    n_unit = len(cfg.unit)
+    out = {}
+    for path, leaf in _leaf_paths(tree):
+        a = np.asarray(leaf)
+        head, rest = path[0], ".".join(path[1:])
+        if head == "units":
+            i, rest = int(path[1]), ".".join(path[2:])
+            if stacked:
+                out[f"units.{i}.{rest}"] = a
+            else:
+                for u in range(cfg.n_units):
+                    out[f"layers.{u * n_unit + i}.{rest}"] = a[u]
+        elif head.startswith("rem_"):
+            j = cfg.n_units * n_unit + int(head[4:])
+            out[f"layers.{j}.{rest}"] = a
+        else:
+            out[".".join(path)] = a
+    return out
+
+
+def opt_state_from_numpy(ref_state, cfg, device=None):
+    """The port's optimizer state from the reference's (leaves as numpy
+    arrays): AdamW's ``m``, ``v`` and ``master`` unstacked to
+    ``{name: tensor}`` as :func:`params_from_numpy` unstacks the params,
+    and its ``count``; Adafactor's ``stats`` keyed by the port's groups
+    (``Decoder.param_groups()``), a units leaf's statistics kept stacked
+    as the reference's arithmetic needs them (a stacked norm scale's
+    ``vc`` is shared by its units), and its ``count``.  ``device=None``
+    means the card."""
+    device = _device.resolve(device, "opt_state_from_numpy")
+
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    out = {"count": t(ref_state["count"])}
+    if "stats" in ref_state:
+        # a leaf's stats dict ({'vr', 'vc'} or {'v'}) is the unit of
+        # grouping: key the leaf paths one level up
+        stats = {}
+        for key, a in named_from_numpy(ref_state["stats"], cfg,
+                                       stacked=True).items():
+            group, field = key.rsplit(".", 1)
+            stats.setdefault(group, {})[field] = t(a)
+        out["stats"] = stats
+        return out
+    for field in ("m", "v", "master"):
+        if field in ref_state:
+            out[field] = {n: t(a) for n, a in
+                          named_from_numpy(ref_state[field], cfg).items()}
+    return out

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (SHARDING, ModelConfig, ShardingPlan,
                                       not_ported)
@@ -169,6 +170,32 @@ def banded_flash_attention(q, k, v, *, window: int, cap: float):
     return o.to(q.dtype)
 
 
+def _flash_step(m, l, o, qr, ks, vs, pos_q, start: int, Skv: int,
+                causal: bool, window: int, cap: float):
+    """One KV chunk of the online softmax: keys ``start ..`` (padded keys
+    at or past ``Skv`` masked).  Returns the new (m, l, o)."""
+    chunk = ks.shape[1]
+    s = torch.einsum("bsegk,btek->bsegt", qr, ks.float())
+    if cap:
+        s = softcap(s, cap)
+    pos_k = start + torch.arange(chunk, device=qr.device)
+    mask = (pos_k[None, :] < Skv).expand(pos_q.shape[0], chunk)
+    if causal:
+        mask = mask & (pos_k[None, :] <= pos_q[:, None])
+    if window:
+        mask = mask & (pos_k[None, :] > pos_q[:, None] - window)
+    mask = mask[None, :, None, None, :]
+    s = torch.where(mask, s, NEG)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p_ = torch.exp(s - m_new[..., None])
+    p_ = torch.where(mask, p_, 0.0)
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + torch.sum(p_, dim=-1)
+    o_new = o * alpha[..., None] + torch.einsum("bsegt,btek->bsegk", p_,
+                                                vs.float())
+    return m_new, l_new, o_new
+
+
 def flash_attention(q, k, v, *, causal: bool, window: int, chunk: int,
                     cap: float, q_offset=0):
     """q: (B,Sq,H,hd); k,v: (B,Skv,E,hd) with H % E == 0.  Online softmax
@@ -195,28 +222,19 @@ def flash_attention(q, k, v, *, causal: bool, window: int, chunk: int,
     m = torch.full((B, Sq, E, G), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Sq, E, G), dtype=torch.float32, device=dev)
     o = torch.zeros((B, Sq, E, G, hd), dtype=torch.float32, device=dev)
+    # under autograd each chunk step is recomputed in backward, as the
+    # reference remats its scan body: the (B, Sq, E, G, chunk) probabilities
+    # are not kept for every chunk
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
     for idx in range(nchunks):
-        ks = k[:, idx * chunk:(idx + 1) * chunk]
-        vs = v[:, idx * chunk:(idx + 1) * chunk]
-        s = torch.einsum("bsegk,btek->bsegt", qr, ks.float())
-        if cap:
-            s = softcap(s, cap)
-        pos_k = idx * chunk + torch.arange(chunk, device=dev)
-        mask = (pos_k[None, :] < Skv).expand(Sq, chunk)
-        if causal:
-            mask = mask & (pos_k[None, :] <= pos_q[:, None])
-        if window:
-            mask = mask & (pos_k[None, :] > pos_q[:, None] - window)
-        mask = mask[None, :, None, None, :]
-        s = torch.where(mask, s, NEG)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p_ = torch.exp(s - m_new[..., None])
-        p_ = torch.where(mask, p_, 0.0)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + torch.sum(p_, dim=-1)
-        o = o * alpha[..., None] + torch.einsum("bsegt,btek->bsegk", p_,
-                                                vs.float())
-        m = m_new
+        args = (m, l, o, qr, k[:, idx * chunk:(idx + 1) * chunk],
+                v[:, idx * chunk:(idx + 1) * chunk], pos_q,
+                idx * chunk, Skv, causal, window, cap)
+        if remat:
+            m, l, o = checkpoint(_flash_step, *args, use_reentrant=False)
+        else:
+            m, l, o = _flash_step(*args)
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 

@@ -4,8 +4,17 @@ from ``repro.models.transformer``.
 The reference scans over ``cfg.n_units`` repeats of the pattern unit and
 applies the remainder layers after the scan.  The port keeps the layers in
 that order in one ``nn.ModuleList`` (unit u, position i at ``u * len(unit)
-+ i``, then the remainder) and runs them in a Python loop; the decode cache
-is a list of per-layer dicts in the same order, written in place.
++ i``, then the remainder) and runs them in a Python loop; with
+``cfg.remat == "full"`` a training forward recomputes each layer in
+backward (``torch.utils.checkpoint``), as the reference remats each unit.
+
+The decode cache (:class:`DecodeCache`) is a list of per-layer dicts in the
+same order, written in place, so a step needs no host sync.  The
+reference's decode is functional: an old cache stays valid after a step.
+The port's is not, so its cache records the next position as a Python int
+and ``decode_step`` refuses any other; a caller that decodes again from an
+earlier position (a shared prompt prefix, a retry) keeps a
+:func:`copy_cache` taken there.
 
 The layer kinds ``attn`` and ``local`` are ported.  RWKV and RG-LRU
 mixers, the MoE feed-forward and a plan with a mesh raise
@@ -14,10 +23,11 @@ allocated or computed.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, LOCAL, MOE, RECURRENT, RGLRU,
                                       RWKV, SHARDING, ModelConfig,
@@ -65,13 +75,55 @@ class Block(nn.Module):
 
 class Decoder(nn.Module):
     """``embed``, ``layers`` (in the order they are applied) and
-    ``final_norm``."""
+    ``final_norm``; ``unit_len`` is ``len(cfg.unit)``: the first
+    ``len(layers) // unit_len`` units of layers are the reference's stacked
+    ``units``, the rest its ``rem_i`` layers."""
 
-    def __init__(self, embed: L.Embed, layers, final_norm):
+    def __init__(self, embed: L.Embed, layers, final_norm, unit_len: int):
         super().__init__()
         self.embed = embed
         self.layers = nn.ModuleList(layers)
         self.final_norm = nn.Parameter(final_norm)
+        self.unit_len = unit_len
+
+    def param_groups(self) -> Dict[str, Tuple[List[str], bool]]:
+        """The reference's parameter leaves over the port's names: group key
+        -> (member names, stacked).  Unit position i's ``rest`` (e.g.
+        ``mixer.wq``) is one stacked leaf of the reference, key
+        ``units.{i}.{rest}``, members ``layers.{u * unit_len + i}.{rest}``
+        for u = 0 .. n_units - 1; every other parameter is a leaf alone,
+        keyed by its own name.  Adafactor's factoring and update clip, and
+        int8 compression's scale, act on these leaves."""
+        stacked = len(self.layers) // self.unit_len * self.unit_len
+        groups: Dict[str, Tuple[List[str], bool]] = {}
+        for name, _ in self.named_parameters():
+            head, j, rest = (name.split(".", 2) + ["", ""])[:3]
+            if head == "layers" and int(j) < stacked:
+                key = f"units.{int(j) % self.unit_len}.{rest}"
+                groups.setdefault(key, ([], True))[0].append(name)
+            else:
+                groups[name] = ([name], False)
+        return groups
+
+
+class DecodeCache(list):
+    """The decode cache: one dict of tensors a layer, in the order the
+    layers run, and ``next_pos``, the position (a Python int) that the next
+    ``decode_step`` must be given.  Steps write the tensors in place; see
+    :func:`copy_cache` to keep a cache to decode from again."""
+
+    def __init__(self, layers=(), next_pos: int = 0):
+        super().__init__(layers)
+        self.next_pos = next_pos
+
+
+def copy_cache(cache: DecodeCache) -> DecodeCache:
+    """A copy of ``cache`` (every tensor cloned, and its next position)
+    that later steps on either do not touch: the way to decode again from
+    this position, e.g. several continuations of one prompt."""
+    return DecodeCache(
+        ({k: v.clone() for k, v in layer.items()} for layer in cache),
+        cache.next_pos)
 
 
 def _layer_init(gen, kind: str, cfg: ModelConfig, dtype, device) -> Block:
@@ -128,15 +180,17 @@ def init_decoder(gen, cfg: ModelConfig, dtype=torch.float32,
     embed = L.embed_init(gen, cfg, dtype, device)
     blocks = [_layer_init(gen, kind, cfg, dtype, device)
               for kind in layer_kinds(cfg)]
-    return Decoder(embed, blocks, L._zeros((cfg.d_model,), dtype, device))
+    return Decoder(embed, blocks, L._zeros((cfg.d_model,), dtype, device),
+                   len(cfg.unit))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                plan: ShardingPlan, dtype=torch.bfloat16,
-               device=None) -> List[Dict[str, torch.Tensor]]:
+               device=None) -> DecodeCache:
+    """An empty cache whose next position is 0."""
     check_ported(cfg, plan)
-    return [_layer_cache(kind, cfg, batch, max_seq, plan, dtype, device)
-            for kind in layer_kinds(cfg)]
+    return DecodeCache(_layer_cache(kind, cfg, batch, max_seq, plan, dtype,
+                                    device) for kind in layer_kinds(cfg))
 
 
 def _embed_inputs(params: Decoder, batch, cfg: ModelConfig,
@@ -153,34 +207,61 @@ def _blocks(params: Decoder, cfg: ModelConfig):
     return zip(layer_kinds(cfg), params.layers, strict=True)
 
 
+def _layer_forward(kind, p, x, positions, cfg, plan, mode):
+    return _layer_apply(kind, p, x, positions, cfg, plan, None, mode)[0]
+
+
 def forward(params: Decoder, batch, cfg: ModelConfig, plan: ShardingPlan, *,
-            mode: str = "train"):
-    """Full-sequence forward (train / prefill). Returns (logits, aux); the
-    final softcap applies outside train mode; ``aux`` holds the
-    reference's MoE terms, zero for the dense decoder."""
+            mode: str = "train", return_hidden: bool = False):
+    """Full-sequence forward (train / prefill). Returns (logits, aux), or
+    (normed hidden states, aux) when ``return_hidden`` (the fused-loss
+    path); the final softcap applies outside train mode; ``aux`` holds the
+    reference's MoE terms, zero for the dense decoder.  With
+    ``cfg.remat == "full"``, in train mode under autograd, each layer's
+    activations are recomputed in backward."""
     check_ported(cfg, plan)
     x = _embed_inputs(params, batch, cfg, plan)
     positions = torch.arange(x.shape[1], device=x.device)
+    remat = (cfg.remat == "full" and mode == "train"
+             and torch.is_grad_enabled())
     for kind, p in _blocks(params, cfg):
-        x, _ = _layer_apply(kind, p, x, positions, cfg, plan, None, mode)
+        if remat:
+            x = checkpoint(_layer_forward, kind, p, x, positions, cfg, plan,
+                           mode, use_reentrant=False)
+        else:
+            x = _layer_forward(kind, p, x, positions, cfg, plan, mode)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"moe_aux": zero, "moe_z": zero}
+    if return_hidden:
+        return x, aux
     logits = L.unembed_apply(params.embed, x, cfg, plan,
                              apply_softcap=(mode != "train"))
     return logits, aux
 
 
-def decode_step(params: Decoder, cache, token, index: int, cfg: ModelConfig,
-                plan: ShardingPlan):
+def decode_step(params: Decoder, cache: DecodeCache, token, index: int,
+                cfg: ModelConfig, plan: ShardingPlan):
     """One-token decode. token: (B, 1) int; index: the position, a Python
-    int.  Returns (logits (B,1,V), cache), the cache written in place."""
+    int, which must be the cache's ``next_pos``.  Returns (logits (B,1,V),
+    cache), the cache written in place and its ``next_pos`` advanced."""
     check_ported(cfg, plan)
     index = int(index)
+    want = getattr(cache, "next_pos", None)
+    if index != want:
+        raise ValueError(
+            f"decode_step at position {index} on a cache whose next "
+            f"position is {want}: the port writes the cache in place, so a "
+            f"cache decodes each position once, in order (the reference's "
+            f"decode is functional and leaves an old cache usable).  To "
+            f"decode again from an earlier position keep a "
+            f"models.model.copy_cache taken there; a cache must come from "
+            f"model.init_cache")
     x = L.embed_apply(params.embed, token, cfg, plan)
     positions = torch.full((1,), index, dtype=torch.int32, device=x.device)
     for j, (kind, p) in enumerate(_blocks(params, cfg)):
         x, cache[j] = _layer_apply(kind, p, x, positions, cfg, plan,
                                    cache[j], "decode", index)
+    cache.next_pos = index + 1
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return L.unembed_apply(params.embed, x, cfg, plan), cache

@@ -1,1 +1,4 @@
-from repro_torch.train.step import make_prefill_step, make_serve_step
+from repro_torch.train.step import (
+    TrainState, make_prefill_step, make_serve_step, make_train_step,
+)
+from repro_torch.train.loop import fit

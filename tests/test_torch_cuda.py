@@ -1274,3 +1274,51 @@ def test_reduced_decoder_served_on_the_card(cuda, arch):
     assert res.p50.value.item() == srt[(n + 1) // 2 - 1].item()
     assert res.p99.value.item() == srt[math.ceil(0.99 * n) - 1].item()
     assert 3 not in (int(res.p50.status), int(res.p99.status))
+
+
+def test_reduced_train_step_on_the_card(cuda):
+    """Two reduced phi3-mini train steps (AdamW, the quantile clip) on the
+    card against the port on the CPU from the same weights and batches:
+    losses within 1e-5 relative, ``clip_thr`` within 1e-3 relative (12
+    cutting-plane passes over sums in another order), every parameter
+    within 0.05 lr a step of the CPU's and all but 2% within 1e-4 lr
+    (Adam's m / (sqrt(v) + eps) magnifies gradients near eps), as
+    tests/test_torch_train.py holds the port against the reference; the
+    clip's selections run on the card (f32 matmuls without TF32)."""
+    import copy
+
+    from repro_torch.configs import get_config, local_plan
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_for_shape
+    from repro_torch.models import model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainState, make_train_step
+
+    assert torch.get_float32_matmul_precision() == "highest"
+    lr = 1e-2
+    cfg = get_config("phi3-mini-3.8b").reduced()
+    shape = ShapeConfig("t", 24, 2, "train")
+    states, metrics = [], []
+    cpu = model.init(5, cfg, device="cpu")
+    for params in (cpu, copy.deepcopy(cpu).to(cuda)):
+        opt = AdamW(lr=lr)
+        state = TrainState(params, opt.init(params), 0)
+        step = make_train_step(cfg, local_plan(), opt, clip="quantile")
+        out = []
+        for i in range(2):
+            state, m = step(state, batch_for_shape(cfg, shape, seed=1,
+                                                   step=i))
+            out.append({k: float(v) for k, v in m.items()})
+        states.append(state)
+        metrics.append(out)
+    for mc, mg in zip(*metrics):
+        assert abs(mg["loss"] - mc["loss"]) <= 1e-5 * abs(mc["loss"])
+        assert abs(mg["clip_thr"] - mc["clip_thr"]) <= 1e-3 * mc["clip_thr"]
+    far = total = 0
+    for (n, pc), (_, pg) in zip(states[0].params.named_parameters(),
+                                states[1].params.named_parameters()):
+        d = (pg.detach().cpu() - pc.detach()).abs()
+        assert d.max().item() <= 0.05 * lr * 2, n
+        far += int((d > 1e-4 * lr).sum())
+        total += d.numel()
+    assert far <= 0.02 * total

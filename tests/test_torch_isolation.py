@@ -40,9 +40,10 @@ def test_no_jax_or_reference_imports(path):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """In a fresh interpreter where ``import jax`` fails, the whole port
-    imports (``core.robust`` and ``core.distributed`` included) and answers
-    a CPU median, a CPU segmented solve and a world-of-one gloo
-    ``sharded_median`` on the CPU, and no ``repro`` module loads."""
+    imports (``core.robust``, ``core.distributed`` and the training
+    subpackages included) and answers a CPU median, a CPU segmented solve,
+    a world-of-one gloo ``sharded_median`` and one reduced train step with
+    the quantile clip on the CPU, and no ``repro`` module loads."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -69,6 +70,23 @@ mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
 res = distributed.sharded_median(x, mesh, "data")
 assert float(res.value) == 4.0 and int(res.status) != 3, res
 dist.destroy_process_group()
+import repro_torch.optim, repro_torch.data, repro_torch.checkpoint
+import repro_torch.train.loop, repro_torch.launch.train
+from repro_torch.configs import get_config, local_plan
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import batch_for_shape
+from repro_torch.models import model
+from repro_torch.optim import AdamW
+from repro_torch.train import TrainState, make_train_step
+cfg = get_config("phi3-mini-3.8b").reduced()
+params = model.init(0, cfg, device="cpu")
+opt = AdamW()
+state = TrainState(params, opt.init(params), 0)
+step = make_train_step(cfg, local_plan(), opt, clip="quantile")
+state, m = step(state, batch_for_shape(
+    cfg, ShapeConfig("t", 16, 2, "train"), seed=0, step=0))
+assert state.step == 1 and np.isfinite(float(m["loss"])), m
+assert float(m["clip_thr"]) > 0, m
 loaded = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not loaded, loaded
 print("ok")

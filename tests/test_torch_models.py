@@ -137,6 +137,9 @@ def test_decode_steps_match_reference(arch):
                                dtype=jnp.float32)
     cache = model.init_cache(cfg, B, max_seq=MAX_SEQ, plan=local_plan(),
                              dtype=torch.float32, device="cpu")
+    # the reference decodes from position 3 over the zero slots 0..2 of a
+    # fresh cache; the port's cache decodes from its next position, set so
+    cache.next_pos = DECODE_FROM
     step = make_serve_step(cfg, local_plan())
     for t in range(DECODE_STEPS):
         index = DECODE_FROM + t
